@@ -14,20 +14,36 @@ Phases, one JSON line each:
             each hand-written kernel against its plain PyTorch version on
             the same CUDA tensors, at the main path's shapes and at the
             "medium" shape of ``benchmarks/bench_kernels.py``: ef_sparsify
-            bitwise, ota_project at rtol = atol = 3e-5 (Rademacher and
-            Gaussian entries), amp_fused at rtol 1e-4 / atol 1e-5 with an
-            ``id_offset`` sub-range bitwise; times by CUDA events (median);
-            the adjoint ``ota_project_t``, not ported yet, is listed under
-            ``not_ported``;
+            bitwise, ota_project and its adjoint ota_project_t at
+            rtol = atol = 3e-5 (Rademacher and Gaussian entries), amp_fused
+            at rtol 1e-4 / atol 1e-5 with an ``id_offset`` sub-range
+            bitwise; times by CUDA events (median);
 4. slice    the port's ``run_federated`` at the paper's full scale: the
             single-layer model (d = 7850) on the MNIST surrogate, M = 25
             devices of B = 1000 samples, 60 000 / 10 000 samples, blocked
             A-DSGD with ``ota_overrides("mnist_mlp")`` and ``use_kernel``,
-            20 AMP iterations, 20 rounds.  Every kernel's launch count must
-            grow in that run, the test loss must fall, and the first round's
-            gradient estimate must equal the plain path's;
-5. kernels  the per-kernel record: route, source, the TPU kernel it
-            replaces, launches in the slice run, error, times and bound.
+            20 AMP iterations, 20 rounds.  ef_sparsify, ota_project and
+            amp_fused must each launch in that run, the test loss must
+            fall, and the first round's gradient estimate must equal the
+            plain path's;
+5. unfused_decode
+            the launch-per-op AMP decode (``amp_decode_blocked``) on a
+            ``use_kernel`` projector at the slice's decode shape (2 blocks,
+            1024 -> 4096, 20 iterations, noisy y): exactly 20 launches of
+            ota_project_t and 21 of ota_project, and the result within
+            rtol 1e-4 / atol 1e-5 of the plain projector's decode and of
+            the fused kernel's; its time beside both;
+6. engine   the port's ``run_compiled`` at the slice's scale and config:
+            its accuracies and losses equal the slice phase's
+            ``run_federated`` run, a checkpointed run stopped at round 10
+            and resumed equals the uninterrupted one bitwise, no host sync
+            inside the loop, and its ms per round;
+7. kernels  the per-kernel record: route, source, the TPU kernel it
+            replaces, launches on its path (and on every path), error,
+            times and bound.
+
+Each path (slice, unfused_decode, engine) runs with every launch count set
+to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -67,15 +83,20 @@ KERNELS = {
     "ota_project": dict(
         source=f"{_SOURCES}/csrc/ota_project.cu",
         replaces="src/repro/kernels/ota_project.py:134 ota_project_pallas"),
+    "ota_project_t": dict(
+        source=f"{_SOURCES}/csrc/ota_project_t.cu",
+        replaces="src/repro/kernels/ota_project.py:173 ota_project_t_pallas"),
     "amp_fused": dict(
         source=f"{_SOURCES}/csrc/amp_fused.cu",
         replaces="src/repro/kernels/amp_fused.py:72 amp_decode_fused_pallas"),
 }
-NOT_PORTED = [dict(
-    name="ota_project_t", ported=False,
-    replaces="src/repro/kernels/ota_project.py:173 ota_project_t_pallas",
-    reason="not on the main path: reached only by amp_decode_blocked, "
-           "which runs with use_kernel=False")]
+#: the path each kernel's ``launches`` is read from, and the kernels each
+#: path must launch
+KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
+               "ota_project_t": "unfused_decode", "amp_fused": "slice"}
+PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
+                "unfused_decode": ("ota_project", "ota_project_t"),
+                "engine": ("ef_sparsify", "ota_project", "amp_fused")}
 
 
 class CheckFailed(RuntimeError):
@@ -203,6 +224,41 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
         plain_ms=cuda_ms(lambda: ref.ota_project_ref(x, seed, s, rademacher)),
         library_ms=cuda_ms(lambda: torch.bmm(A, xt)),
         bound=bound(4 * (m * n_blocks * c + m * n_blocks * s), n_ops))
+
+
+def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
+                        rademacher: bool, device, gen):
+    import torch
+    from repro_torch.kernels import ota_project, ref
+    y = torch.randn(m, n_blocks, s, generator=gen, device=device)
+    seed = 12345
+    r = ota_project.ota_project_t(y, seed, c, rademacher)
+    r_ref = ref.ota_project_t_ref(y, seed, c, rademacher)
+    again = ota_project.ota_project_t(y, seed, c, rademacher)
+    torch.cuda.synchronize()
+    check(torch.allclose(r, r_ref, rtol=3e-5, atol=3e-5),
+          f"ota_project_t {m}x{n_blocks}x{s}->{c} rademacher={rademacher}: "
+          + mismatch(r, r_ref, 3e-5, 3e-5))
+    check(torch.equal(r, again), "ota_project_t: two runs differ")
+    # yardstick: one batched product with A materialised beforehand
+    A_t = ref.block_matrix_ref(seed, torch.arange(n_blocks, device=device),
+                               s, c, rademacher).transpose(1, 2).contiguous()
+    yt = y.permute(1, 2, 0).contiguous()                  # (n_blocks, s, m)
+    entries = n_blocks * s * c
+    n_ops = entries * (HASH_OPS + (0 if rademacher else GAUSS_EXTRA_OPS)) \
+        + 2 * m * entries
+    abs_err, rel_err = errors(r, r_ref)
+    return dict(
+        kernel="ota_project_t", shape=[m, n_blocks, s, c],
+        entries="rademacher" if rademacher else "gaussian",
+        tol="rtol=atol=3e-5", max_abs_err=abs_err, max_rel_err=rel_err,
+        bitwise=bool(torch.equal(r, r_ref)),
+        kernel_ms=cuda_ms(lambda: ota_project.ota_project_t(y, seed, c,
+                                                            rademacher)),
+        plain_ms=cuda_ms(lambda: ref.ota_project_t_ref(y, seed, c,
+                                                       rademacher)),
+        library_ms=cuda_ms(lambda: torch.bmm(A_t, yt)),
+        bound=bound(4 * (m * n_blocks * s + m * n_blocks * c), n_ops))
 
 
 def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen):
@@ -352,15 +408,16 @@ def run_slice(device, steps: int = STEPS, m: int = 25, b: int = 1000,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    for name, n in launches.items():
-        check(n > 0, f"slice: kernel {name} never launched in run_federated")
     check(all(np.isfinite(run.losses)) and run.losses[-1] < run.losses[0],
           f"slice: test loss did not fall: {run.losses}")
     d = int(run.deltas.shape[1])
     check(d == 7850, f"slice: d = {d}, expected 7850")
     check(run.deltas.shape[0] == m, f"slice: M != {m}")
+    for name in PATH_KERNELS["slice"]:
+        check(launches[name] > 0,
+              f"slice: kernel {name} never launched in run_federated")
     timing = round_breakdown(xd, yd, cfg, device)
-    return dict(
+    return (x_dev, y_dev, xte, yte), dict(
         phase="slice", m=m, b=b, n_train=n_train, n_test=n_test, d=d,
         steps=steps, config=dict(projection=cfg.projection,
                                  block_size=cfg.block_size,
@@ -372,6 +429,138 @@ def run_slice(device, steps: int = STEPS, m: int = 25, b: int = 1000,
             k: v / steps for k, v in launches.items()},
         first_round_ghat_vs_plain=parity, losses=run.losses, accs=run.accs,
         final_acc=run.accs[-1], data_s=data_s, run_s=run_s, **timing)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the launch-per-op AMP decode on the adjoint and forward kernels
+# ---------------------------------------------------------------------------
+
+
+def run_unfused_decode(n_blocks: int, c: int, s: int, iters: int, device,
+                       gen):
+    import torch
+    from repro_torch.core.amp import amp_decode_blocked
+    from repro_torch.core.projection import BlockedProjector
+    from repro_torch.kernels import amp_fused, ops, ref
+    seed = 777
+    x = block_sparse(n_blocks, c, s // 8, gen, device)
+    yb = ref.ota_project_ref(x, seed, s) \
+        + 0.01 * torch.randn(n_blocks, s, generator=gen, device=device)
+    kw = dict(d=n_blocks * c, block_size=c, s_block=s, seed=seed)
+    kproj = BlockedProjector(use_kernel=True, **kw)
+    pproj = BlockedProjector(use_kernel=False, **kw)
+
+    ops.reset_launches()
+    out = amp_decode_blocked(yb, kproj, iters=iters)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"ef_sparsify": 0, "ota_project": iters + 1,
+            "ota_project_t": iters, "amp_fused": 0}
+    check(launches == want, f"unfused_decode: launches {launches}, "
+          f"expected {want}")
+    plain = amp_decode_blocked(yb, pproj, iters=iters)
+    fused = amp_fused.amp_decode_fused(yb, seed, c, iters=iters).reshape(-1)
+    torch.cuda.synchronize()
+    for name, other in (("plain projector", plain), ("amp_fused", fused)):
+        check(torch.allclose(out, other, rtol=1e-4, atol=1e-5),
+              f"unfused_decode vs {name}: "
+              + mismatch(out, other, 1e-4, 1e-5))
+    recovery = float((out - x.reshape(-1)).norm() / x.norm())
+    check(recovery < 0.2, f"unfused_decode: relative recovery error "
+          f"{recovery}")
+    return dict(
+        phase="unfused_decode", shape=[n_blocks, s, c], iters=iters,
+        launches=launches, tol="rtol=1e-4 atol=1e-5",
+        max_abs_err_vs_plain=errors(out, plain)[0],
+        max_abs_err_vs_fused=errors(out, fused)[0],
+        bitwise_vs_plain=bool(torch.equal(out, plain)),
+        recovery_rel_err=recovery,
+        unfused_kernel_ms=cuda_ms(lambda: amp_decode_blocked(
+            yb, kproj, iters=iters), reps=10),
+        unfused_plain_ms=cuda_ms(lambda: amp_decode_blocked(
+            yb, pproj, iters=iters), reps=10),
+        fused_kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(
+            yb, seed, c, iters=iters), reps=10))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the engine, and its checkpointed resume
+# ---------------------------------------------------------------------------
+
+
+def run_engine(data, cfg, slice_line, device, steps: int = STEPS,
+               eval_every: int = 5, stop_at: int = 10):
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.experiments import engine
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run = engine.run_compiled(*data, cfg, steps=steps, lr=1e-3,
+                              eval_every=eval_every, device=device)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for name in PATH_KERNELS["engine"]:
+        check(launches[name] > 0,
+              f"engine: kernel {name} never launched in run_compiled")
+    check(run.accs == slice_line["accs"] and run.losses
+          == slice_line["losses"],
+          f"engine: run_compiled {run.accs} {run.losses} differs from "
+          f"run_federated {slice_line['accs']} {slice_line['losses']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(steps=steps, lr=1e-3, eval_every=eval_every,
+                  device=device, checkpoint_dir=tmp,
+                  checkpoint_every=eval_every)
+        stopped = engine.run_compiled(*data, cfg, stop_after_step=stop_at,
+                                      **kw)
+        check(stopped is None, "engine: the interrupted run did not stop")
+        resumed = engine.run_compiled(*data, cfg, resume=True, **kw)
+    torch.cuda.synchronize()
+    check(resumed.accs == run.accs and resumed.losses == run.losses
+          and resumed.all_losses.tolist() == run.all_losses.tolist()
+          and all(torch.equal(resumed.params[k], run.params[k])
+                  for k in run.params),
+          "engine: the resumed run is not bitwise the uninterrupted one")
+
+    # steady state: the same runner, its loop alone, by CUDA events; and
+    # whether anything inside the loop waits for the device
+    exp = engine.Experiment(cfg=cfg, steps=steps, eval_every=eval_every)
+    ce = engine.CompiledExperiment(*data, exp, device=device)
+    keys = engine.round_keys(steps, 0, device)
+    ce.run({}, keys)
+    torch.cuda.synchronize()
+
+    def sync_warnings(fn):
+        """torch's warnings of synchronizing calls made by ``fn()`` (its
+        notice that the debug mode is a prototype is not one)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        msgs = [str(w.message).splitlines()[0] for w in caught]
+        return [m for m in msgs if "synchroniz" in m.lower()
+                and "prototype" not in m]
+
+    check(sync_warnings(lambda: keys[0, 1].item()) != [],
+          "engine: the sync detector does not see an .item()")
+    syncs = sync_warnings(lambda: ce.run({}, keys))
+    check(not syncs, f"engine: host syncs inside the loop: {syncs[:5]}")
+    run_ms = cuda_ms(lambda: ce.run({}, keys), warmup=1, reps=3)
+    return dict(
+        phase="engine", steps=steps, launches=launches,
+        launches_per_round={k: v / steps for k, v in launches.items()},
+        equals_run_federated=True, resumed_bitwise=True,
+        checkpoint=dict(every=eval_every, stopped_after=stop_at),
+        host_syncs_in_loop=len(syncs), losses=run.losses, accs=run.accs,
+        run_s=run_s, ms_per_round=run_ms / steps,
+        run_federated_round_ms=slice_line["round_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +605,9 @@ def main() -> int:
         "ef_sparsify": check_ef_sparsify(25, d, k, device, gen),
         "ota_project": check_ota_project(25, n_blocks, c, s, cfg.rademacher,
                                          device, gen),
+        # the adjoint at its path's shape: one decode's z, 1024 -> 4096
+        "ota_project_t": check_ota_project_t(1, n_blocks, s, c,
+                                             cfg.rademacher, device, gen),
         "amp_fused": check_amp_fused(n_blocks, c, s, cfg.amp_iters, device,
                                      gen),
     }
@@ -424,26 +616,38 @@ def main() -> int:
         check_ota_project(25, n_blocks, c, s, False, device, gen),
         check_ota_project(1, 64, 1024, 256, True, device, gen),
         check_ota_project(1, 64, 1024, 256, False, device, gen),
+        check_ota_project_t(1, 64, 256, 1024, True, device, gen),
+        check_ota_project_t(1, 64, 256, 1024, False, device, gen),
         check_amp_fused(64, 1024, 256, 10, device, gen),
     ]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
-              other_shapes=extra, not_ported=NOT_PORTED))
+              other_shapes=extra, not_ported=[]))
 
-    sl = run_slice(device)
+    data, sl = run_slice(device)
     emit(sl)
+    ud = run_unfused_decode(n_blocks, c, s, cfg.amp_iters, device, gen)
+    emit(ud)
+    eng = run_engine(data, cfg, sl, device)
+    emit(eng)
 
+    paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
+             "engine": eng["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
         bound_ms, bound_by = chk["bound"]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=sl["launches"][name],
+            replaces=meta["replaces"],
+            launches=paths[KERNEL_PATH[name]][name],
             max_abs_err=chk["max_abs_err"], ms=chk["kernel_ms"],
             plain_ms=chk["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=chk["library_ms"], shape=chk["shape"],
             max_rel_err=chk["max_rel_err"], kernel_ms=chk["kernel_ms"],
-            ported=True))
+            ported=True, path=KERNEL_PATH[name],
+            launches_per_path={p: n[name] for p, n in paths.items()}))
+    check(len(kernels) == 4 and all(k["ported"] for k in kernels),
+          "kernels: not all four TPU kernels are ported")
     emit({"kernels": kernels})
 
     print(smi, flush=True)

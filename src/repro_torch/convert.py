@@ -2,8 +2,10 @@
 
 The JAX package hands over its params, Adam state and ``(M, d)`` error
 accumulators as numpy arrays (``jax.device_get``); :func:`to_torch` turns
-any such dict tree into tensors on a device and :func:`to_numpy` turns the
-port's trees back.  Dtypes are kept (the Adam step count stays int32).
+any such tree of dicts, tuples and lists (an engine's scan carry is a
+tuple) into tensors on a device, the card unless the caller names another,
+and :func:`to_numpy` turns the port's trees back.  Dtypes are kept (the
+Adam step count stays int32).
 
 The flat gradient layout follows ``jax.flatten_util.ravel_pytree``, which
 orders a dict's leaves by sorted key: for ``{"w": (784, 10), "b": (10,)}``
@@ -18,18 +20,29 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def to_torch(tree, device=None):
-    """numpy arrays (in nested dicts) -> tensors on ``device``."""
+    """numpy arrays (in nested dicts, tuples, lists) -> tensors on ``device``.
+
+    ``device=None`` is the card (:func:`repro_torch.device.resolve_device`)
+    and raises without one; CPU callers pass ``device="cpu"``.
+    """
+    dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+        return {k: to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_torch(v, dev) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
 
 
 def to_numpy(tree):
-    """tensors (in nested dicts) -> numpy arrays on the host."""
+    """tensors (in nested dicts, tuples, lists) -> numpy arrays on the host."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
 
 

@@ -15,6 +15,7 @@ decoding through the projector (:func:`amp_decode_blocked`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
@@ -34,9 +35,10 @@ def _ls_rescale(x: torch.Tensor, ax: torch.Tensor, y: torch.Tensor) -> torch.Ten
     return x * _debias_factor(torch.dot(ax, y), torch.dot(ax, ax))
 
 
-def _sqrt_f32(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.tensor(float(n), dtype=torch.float32,
-                                   device=like.device))
+def _sqrt_f32(n: int) -> float:
+    """``sqrt(f32(n))`` rounded to float32, as a python scalar (no tensor
+    copied to the device, so no wait for the device's queue)."""
+    return float(np.sqrt(np.float32(n)))
 
 
 def amp_decode_dense(y: torch.Tensor, A: torch.Tensor, iters: int = 20,
@@ -44,7 +46,7 @@ def amp_decode_dense(y: torch.Tensor, A: torch.Tensor, iters: int = 20,
                      debias: bool = True) -> torch.Tensor:
     """Recover x (d,) from y (s,) with the dense measurement matrix A (s,d)."""
     s, d = A.shape
-    sqrt_s = _sqrt_f32(s, y)
+    sqrt_s = _sqrt_f32(s)
     x = torch.zeros((d,), dtype=y.dtype, device=y.device)
     z = y
     for _ in range(iters):
@@ -88,10 +90,16 @@ def amp_decode_blocked(yb: torch.Tensor, projector, iters: int = 20,
     """Per-block AMP. yb: (n_blocks, s_block) -> flat (d,) estimate.
 
     All products go through the projector (on-the-fly A), so every
-    application regenerates A -- 2*iters+1 generations per decode.
+    application regenerates A -- 2*iters+1 generations per decode.  On a
+    ``use_kernel`` projector and a CUDA tensor each iteration launches the
+    adjoint kernel ``ota_project_t`` once and the forward kernel
+    ``ota_project`` once, and the debias one more forward: ``iters`` and
+    ``iters + 1`` launches per decode.  :func:`amp_decode` sends a
+    ``use_kernel`` projector to the fused kernel instead, as the reference
+    does; this launch-per-op route is called directly.
     """
     n_blocks, s_block = yb.shape
-    sqrt_s = _sqrt_f32(s_block, yb)
+    sqrt_s = _sqrt_f32(s_block)
     x = torch.zeros((n_blocks, projector.block_size), dtype=yb.dtype,
                     device=yb.device)
     z = yb
@@ -126,7 +134,7 @@ def amp_blocked_core(yb: torch.Tensor, seed, c: int, iters: int = 20,
                                     nb_tile=chunk_blocks,
                                     id_offset=id_offset)
     n_blocks, s_block = yb.shape
-    sqrt_s = _sqrt_f32(s_block, yb)
+    sqrt_s = _sqrt_f32(s_block)
     offset = ref.as_u32(id_offset, yb.device)
     outs = []
     for b0 in range(0, n_blocks, chunk_blocks):

@@ -8,8 +8,10 @@ Two realisations, as in the reference's ``repro/core/projection.py``:
 * ``BlockedProjector`` -- block-diagonal A: the flattened gradient is split
   into ``n_blocks`` chunks of ``block_size``; each chunk has an independent
   (s_block x block_size) matrix generated on the fly from a counter hash
-  (kernels/).  With ``use_kernel`` the forward product runs in the CUDA
-  kernel on the card.
+  (kernels/).  With ``use_kernel`` the forward product
+  (:meth:`BlockedProjector.project`) and its adjoint
+  (:meth:`BlockedProjector.project_t`) run in the CUDA kernels
+  ``ota_project`` and ``ota_project_t`` on the card.
 
 Every method takes a leading device axis: ``(..., d)`` in, ``(..., out)`` out.
 """

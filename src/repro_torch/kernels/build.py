@@ -38,6 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ef_sparsify_launch": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
     "ota_project_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "ota_project_t_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "amp_fused_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                               _F, _P]),
     "amp_fused_smem_bytes": (_I64, [_I, _I]),

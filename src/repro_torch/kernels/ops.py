@@ -59,10 +59,11 @@ def ef_sparsify(g: torch.Tensor, delta: torch.Tensor, tau, *,
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last :func:`reset_launches`."""
     return {"ef_sparsify": _ef.launches, "ota_project": _otp.launches,
-            "amp_fused": amp_fused.launches}
+            "ota_project_t": _otp.launches_t, "amp_fused": amp_fused.launches}
 
 
 def reset_launches() -> None:
     _ef.launches = 0
     _otp.launches = 0
+    _otp.launches_t = 0
     amp_fused.launches = 0

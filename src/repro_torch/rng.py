@@ -116,9 +116,11 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     """float32 ``jax.random.uniform`` on ``[minval, maxval)``."""
     bits = random_bits(key, shape)
     floats = _as_f32((bits >> 9) | 0x3F800000) - 1.0
-    lo = torch.tensor(np.float32(minval), device=key.device)
-    span = np.float32(np.float32(maxval) - np.float32(minval))
-    return torch.maximum(lo, fma_f32(floats, float(span), lo))
+    # python scalars, not tensors made on the device: a host-to-device copy
+    # would wait for the device's queue to drain
+    lo = float(np.float32(minval))
+    span = float(np.float32(np.float32(maxval) - np.float32(minval)))
+    return torch.clamp(fma_f32(floats, span, lo), min=lo)
 
 
 # XLA's float32 erf_inv (M. Giles, "Approximating the erfinv function"):
@@ -148,19 +150,61 @@ def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
     return r
 
 
+# Cephes' logf polynomial as XLA's CPU backend emits it for float32 ``log``
+# (``polynomial_approximations.cc``, ``GenerateVF32Log``), lowest degree last
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = float(np.float32(0.693359375))
+_SQRT_HALF_F32 = float(np.float32(0.707106781186547524))
+_MIN_NORMAL_F32 = float(np.finfo(np.float32).tiny)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU backend computes it, bit for bit.
+
+    ``x = m * 2**e`` with ``m`` in ``[sqrt(1/2), sqrt(2))``; ``log(m)`` is
+    ``t - t**2/2 + t**3 * P(t)`` for ``t = m - 1``, with P's nine
+    coefficients in three interleaved Horner chains joined by ``t**3``,
+    every ``a*b + c`` fused; then ``e * log(2)`` is added in two parts.
+    Neither ``torch.log`` nor a float64 log rounded to float32 gives these
+    bits.  Zero and subnormal inputs (which XLA flushes to zero) give
+    ``-inf``, ``inf`` gives ``inf`` and a negative input NaN.
+    """
+    p = [float(np.float32(c)) for c in _LOG_P]
+    v = torch.clamp(x, min=_MIN_NORMAL_F32)
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) & 0xFF).to(torch.float32) - 126.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < _SQRT_HALF_F32
+    e = e - low.to(torch.float32)
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    t2 = t * t
+    t3 = t2 * t
+    y0 = fma_f32(fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = fma_f32(fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = fma_f32(fma_f32(t, p[6], p[7]), t, p[8])
+    y = fma_f32(fma_f32(y0, t3, y1), t3, y2)
+    y = fma_f32(y, t3, _LOG_Q1 * e)
+    out = ((t - 0.5 * t2) + y) + _LOG_Q2 * e
+    finite = (x >= _MIN_NORMAL_F32) & (x < math.inf)
+    flushed = torch.where((x > 0) & (x < _MIN_NORMAL_F32), 0.0, x)
+    return torch.where(finite, out, torch.log(flushed))
+
+
 def log1p(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``log1p`` following XLA's two branches.
+    """float32 ``log1p`` following XLA's two branches, bit for bit.
 
     Below ``sqrt(2) - 1`` the Cephes rational approximation, evaluated with
-    XLA's fused multiply-adds, matches XLA bit for bit.  Above it XLA takes
-    ``log(1 + x)`` with its own float32 ``log``, which this falls back to
-    torch's for; the two differ by at most a couple of ulp there.
+    XLA's fused multiply-adds; above it ``log(1 + x)`` with XLA's own
+    float32 ``log`` (:func:`log_f32`).
     """
     x2 = x * x
     small = (x * x2) * (_horner(_LOG1P_NUM, x) / _horner(_LOG1P_DEN, x))
     small = x + fma_f32(x2, -0.5, small)
     return torch.where(x.abs() < 0.41421356237309504880, small,
-                       torch.log(x + 1.0))
+                       log_f32(x + 1.0))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -172,7 +216,9 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """
     w = -log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # float32 sqrt through float64, correctly rounded: torch's vectorised
+    # float32 sqrt on the CPU is off by an ulp on about 0.5% of inputs
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(x.dtype)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = fma_f32(p, w, torch.where(lt, a, b).to(x.dtype))

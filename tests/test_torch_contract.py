@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import OTAConfig
 from repro_torch.kernels import ops, ref
 
@@ -45,6 +46,21 @@ def test_run_federated_defaults_to_the_card():
         run_federated(x, y, x[0], y[0], OTAConfig(scheme="ideal"), steps=1)
 
 
+def test_to_torch_defaults_to_the_card_and_carries_tuples():
+    tree = ({"w": np.ones((2, 3), np.float32)},
+            [np.arange(3, dtype=np.int32)], np.zeros(4, np.float32))
+    out = convert.to_torch(tree, "cpu")
+    assert isinstance(out, tuple) and isinstance(out[1], list)
+    assert out[1][0].dtype == torch.int32 and out[0]["w"].shape == (2, 3)
+    back = convert.to_numpy(out)
+    np.testing.assert_array_equal(back[1][0], tree[1][0])
+    if torch.cuda.is_available():
+        assert convert.to_torch(tree)[2].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.to_torch(tree)
+
+
 def test_cpu_tensor_takes_the_plain_version():
     ops.reset_launches()
     x = torch.randn(3, 2, 64)
@@ -56,15 +72,22 @@ def test_cpu_tensor_takes_the_plain_version():
     sp, nd = ops.ef_sparsify(g, d, tau, use_kernel=True)
     np.testing.assert_array_equal(sp.numpy(),
                                   ref.ef_sparsify_ref(g, d, tau)[0].numpy())
+    r = torch.randn(3, 2, 16)
+    np.testing.assert_array_equal(
+        ops.ota_project_t(r, seed=5, c=64, use_kernel=True).numpy(),
+        ref.ota_project_t_ref(r, 5, 64).numpy())
     ops.amp_decode_fused(torch.randn(2, 16), seed=1, c=64, iters=3)
     assert ops.launch_counts() == {"ef_sparsify": 0, "ota_project": 0,
-                                   "amp_fused": 0}
+                                   "ota_project_t": 0, "amp_fused": 0}
 
 
 def test_kernel_sources_present_and_hashed():
     from repro_torch.kernels import build
     names = {p.name for p in build.sources()}
-    assert names == {"ef_sparsify.cu", "ota_project.cu", "amp_fused.cu"}
+    assert names == {"ef_sparsify.cu", "ota_project.cu", "ota_project_t.cu",
+                     "amp_fused.cu"}
+    for name in ("ef_sparsify", "ota_project", "ota_project_t", "amp_fused"):
+        assert f"{name}_launch" in build.SIGNATURES
     assert (build.CSRC / "hash.cuh").is_file()
     assert build.library_path().name.startswith("librepro_torch_kernels_")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

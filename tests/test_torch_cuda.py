@@ -75,10 +75,66 @@ def test_amp_fused(dev, rademacher):
     assert torch.equal(part, out[3:])
 
 
-def test_ota_project_t_not_ported_raises(dev):
-    with pytest.raises(NotImplementedError):
-        ops.ota_project_t(torch.zeros(2, 16, device=dev), seed=0, c=64,
+# (n_blocks, c, s_block): bench_kernels.py's shapes and a ragged c that is
+# no multiple of the kernel's 256 columns per CTA
+T_SHAPES = SHAPES + [(2, 4096, 1024), (3, 1000, 100)]
+
+
+@pytest.mark.parametrize("nb,c,sb", T_SHAPES)
+@pytest.mark.parametrize("rademacher", [True, False])
+@pytest.mark.parametrize("m", [1, 25])
+def test_ota_project_t(dev, nb, c, sb, rademacher, m):
+    y = torch.randn(m, nb, sb, generator=_gen(dev, nb * sb + m), device=dev)
+    seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
+    before = ota_project.launches_t
+    r = ops.ota_project_t(y, seed=seed, c=c, rademacher=rademacher,
                           use_kernel=True)
+    assert ota_project.launches_t == before + 1
+    assert r.shape == (m, nb, c)
+    np.testing.assert_allclose(
+        r.cpu().numpy(), ref.ota_project_t_ref(y, seed, c, rademacher).cpu().numpy(),
+        rtol=3e-5, atol=3e-5)
+    again = ops.ota_project_t(y, seed=seed, c=c, rademacher=rademacher,
+                              use_kernel=True)
+    assert torch.equal(r, again)
+
+
+def test_ota_project_t_adjoint_identity(dev):
+    nb, c, sb = 3, 1000, 100
+    gen = _gen(dev, 11)
+    x = torch.randn(nb, c, generator=gen, device=dev)
+    y = torch.randn(nb, sb, generator=gen, device=dev)
+    ax = ota_project.ota_project(x, 5, sb)
+    aty = ota_project.ota_project_t(y, 5, c)
+    np.testing.assert_allclose(float((ax.double() * y.double()).sum()),
+                               float((x.double() * aty.double()).sum()),
+                               rtol=1e-4)
+
+
+def test_unfused_decode_on_card(dev):
+    """amp_decode_blocked on a use_kernel projector: iters adjoint and
+    iters + 1 forward launches, and the plain projector's decode."""
+    from repro_torch.core.amp import amp_decode_blocked
+    from repro_torch.core.projection import BlockedProjector
+    nb, c, sb, iters = 4, 512, 128, 10
+    gen = _gen(dev, 5)
+    x = torch.zeros(nb, c, device=dev)
+    for b in range(nb):
+        x[b, torch.randperm(c, generator=gen, device=dev)[:sb // 8]] = 1.0
+    proj = BlockedProjector(d=nb * c, block_size=c, s_block=sb, seed=9,
+                            use_kernel=True)
+    yb = ref.ota_project_ref(x, 9, sb) \
+        + 0.01 * torch.randn(nb, sb, generator=gen, device=dev)
+    ops.reset_launches()
+    out = amp_decode_blocked(yb, proj, iters=iters)
+    counts = ops.launch_counts()
+    assert counts["ota_project_t"] == iters
+    assert counts["ota_project"] == iters + 1
+    plain = amp_decode_blocked(
+        yb, BlockedProjector(d=nb * c, block_size=c, s_block=sb, seed=9),
+        iters=iters)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_run_federated_on_card_matches_cpu(dev):
@@ -93,7 +149,9 @@ def test_run_federated_on_card_matches_cpu(dev):
                     total_steps=5, amp_iters=10, mean_removal_steps=2)
     ops.reset_launches()
     rg = run_federated(xd, yd, xte, yte, cfg, steps=5, eval_every=1)
-    assert min(ops.launch_counts().values()) == 5
+    # the fused decode: the adjoint kernel is not on this path
+    assert ops.launch_counts() == {"ef_sparsify": 5, "ota_project": 5,
+                                   "ota_project_t": 0, "amp_fused": 5}
     rc = run_federated(xd, yd, xte, yte, cfg, steps=5, eval_every=1,
                        device="cpu")
     np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4, atol=1e-5)

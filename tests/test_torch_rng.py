@@ -10,12 +10,6 @@ from repro_torch import rng
 SEEDS = [0, 1, 2**31 - 1]
 SHAPES = [(7,), (3, 5), (1025,)]
 
-#: measured max gap of rng.normal against jax.random.normal, in float32 ulp.
-#: Everything but XLA's float32 log (reached through log1p above sqrt(2)-1
-#: inside erf_inv) is reproduced bit for bit; torch's log differs there.
-NORMAL_MAX_ULP = 3
-
-
 def _np(x):
     return np.asarray(x).astype(np.int64)
 
@@ -48,26 +42,43 @@ def test_bits_and_uniform_bitwise(seed, shape):
 
 def test_normal_within_measured_ulp_gap():
     """normal = sqrt(2) * erf_inv(uniform(k, nextafter(-1, 0), 1)), with
-    XLA's erf_inv polynomial and fused multiply-adds: bitwise on all but a
-    few tenths of a percent of draws, which sit within NORMAL_MAX_ULP."""
-    gaps = []
+    XLA's erf_inv polynomial, its float32 log and its fused multiply-adds:
+    bitwise over all 300 000 draws."""
     for seed in SEEDS:
         kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
         nj = np.asarray(jax.random.normal(kj, (100_000,)))
         nt = rng.normal(kt, (100_000,)).numpy()
-        gaps.append(np.abs(nj.view(np.int32).astype(np.int64)
-                           - nt.view(np.int32).astype(np.int64)))
-    gaps = np.concatenate(gaps)
-    assert gaps.max() <= NORMAL_MAX_ULP, gaps.max()
-    assert (gaps == 0).mean() > 0.99, (gaps == 0).mean()
+        np.testing.assert_array_equal(nt.view(np.int32), nj.view(np.int32))
 
 
-def test_erf_inv_matches_xla_given_the_same_log():
-    """With the same float32 log1p input, the polynomial is exact: the
-    remaining gap of normal is XLA's log alone."""
-    u = rng.uniform(rng.PRNGKey(5), (100_000,), -0.4, 0.4)   # log1p branch
-    ej = np.asarray(jax.lax.erf_inv(jnp.asarray(u.numpy())))
-    np.testing.assert_array_equal(ej, rng.erf_inv(u).numpy())
+@pytest.mark.parametrize("lo,hi", [(-0.4, 0.4), (0.4, 0.9966),
+                                   (0.9966, 1.0), (-1.0, -0.9966)])
+def test_erf_inv_matches_xla(lo, hi):
+    """Both of log1p's branches and both of the polynomial's (w < 5 and
+    w >= 5, the tails), bitwise."""
+    u = rng.uniform(rng.PRNGKey(5), (100_000,), lo, hi)
+    u = u[u.abs() < 1.0]
+    ej = np.asarray(jax.jit(jax.lax.erf_inv)(jnp.asarray(u.numpy())))
+    np.testing.assert_array_equal(rng.erf_inv(u).numpy().view(np.int32),
+                                  ej.view(np.int32))
+
+
+@pytest.mark.parametrize("lo,hi", [(1e-38, 1e-30), (1e-7, 0.6), (0.6, 4.0),
+                                   (4.0, 1e30)])
+def test_log_f32_matches_xla(lo, hi):
+    """rng.log_f32 is XLA's CPU float32 log bit for bit (torch.log is not)."""
+    rs = np.random.default_rng(int(hi))
+    a = np.exp(rs.uniform(np.log(lo), np.log(hi), 200_000)).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log)(a))
+    got = rng.log_f32(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log_f32_edges():
+    a = np.array([0.0, 1e-40, -1.0, 1.0, np.inf], np.float32)
+    want = np.asarray(jax.jit(jnp.log)(a))
+    np.testing.assert_array_equal(rng.log_f32(torch.from_numpy(a)).numpy(),
+                                  want)
 
 
 def test_draws_are_device_tensors_of_the_key():
