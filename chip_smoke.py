@@ -9,15 +9,21 @@ CUDA toolkit:
 Phases, one JSON line each:
 
 1. env      torch and CUDA versions, the card's name and power limit;
-2. build    the kernels, compiled from ``src/repro_torch/kernels/csrc``;
+2. build    the kernels, compiled from ``src/repro_torch/kernels/csrc``,
+            with each kernel's registers, spills and shared memory as
+            ``nvcc -Xptxas -v`` reports them;
 3. kernel_checks
             each hand-written kernel against its plain PyTorch version on
             the same CUDA tensors, at the main path's shapes and at the
             "medium" shape of ``benchmarks/bench_kernels.py``: ef_sparsify
             bitwise, ota_project and its adjoint ota_project_t at
             rtol = atol = 3e-5 (Rademacher and Gaussian entries), amp_fused
-            at rtol 1e-4 / atol 1e-5 with an ``id_offset`` sub-range
-            bitwise; times by CUDA events (median);
+            at rtol 1e-4 / atol 1e-5, two runs bitwise and an ``id_offset``
+            sub-range bitwise.  Two times by CUDA events for each kernel
+            and each ``torch.bmm`` yardstick: per call (median of single
+            calls, Python wrapper included) and device time (50
+            back-to-back launches between one event pair, divided by 50),
+            with the share of bound ``bound_ms / device_ms``;
 4. slice    the port's ``run_federated`` at the paper's full scale: the
             single-layer model (d = 7850) on the MNIST surrogate, M = 25
             devices of B = 1000 samples, 60 000 / 10 000 samples, blocked
@@ -51,7 +57,9 @@ the script exits non-zero; without a CUDA device it exits 2 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -74,6 +82,8 @@ GAUSS_EXTRA_OPS = 20
 
 STEPS = 20
 WARMUP, REPS = 3, 20
+#: back-to-back launches between one event pair for a device time
+DEVICE_REPS = 50
 
 _SOURCES = "src/repro_torch/kernels"
 KERNELS = {
@@ -137,6 +147,53 @@ def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, warmup: int = WARMUP, n: int = DEVICE_REPS) -> float:
+    """Device time of ``fn()``: ``n`` calls back to back between one pair of
+    CUDA events, after warm-up, divided by ``n``.  The host enqueues ahead
+    of the card, so the wrapper's time hides behind the kernels' own."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel, from the
+    ``-Xptxas -v`` lines of a build's log."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?E", m.group(1))
+            args = re.findall(r"L([bi])(\d+)E", name.group(2) or "")
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in args]
+            cur = dict(kernel=f"{name.group(1)}<{', '.join(args)}>")
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def bound(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) on the H100's published peaks."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
@@ -191,8 +248,10 @@ def check_ef_sparsify(m: int, n: int, k: int, device, gen):
         max_abs_err=max(errors(sp, sp_ref)[0], errors(nd, nd_ref)[0]),
         max_rel_err=0.0,
         kernel_ms=cuda_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau)),
+        device_ms=device_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau)),
         plain_ms=cuda_ms(lambda: ref.ef_sparsify_ref(g, delta, tau)),
-        library_ms=None, bound=bound(n_bytes, 3 * m * n))
+        library_ms=None, library_device_ms=None,
+        bound=bound(n_bytes, 3 * m * n))
 
 
 def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
@@ -214,15 +273,22 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
     entries = n_blocks * s * c
     n_ops = entries * (HASH_OPS + (0 if rademacher else GAUSS_EXTRA_OPS)) \
         + 2 * m * entries
+    again = ota_project.ota_project(x, seed, s, rademacher)
+    torch.cuda.synchronize()
+    check(torch.equal(y, again), "ota_project: two runs differ")
     abs_err, rel_err = errors(y, y_ref)
     return dict(
         kernel="ota_project", shape=[m, n_blocks, c, s],
         entries="rademacher" if rademacher else "gaussian",
         tol="rtol=atol=3e-5", max_abs_err=abs_err, max_rel_err=rel_err,
+        bitwise=bool(torch.equal(y, y_ref)),
         kernel_ms=cuda_ms(lambda: ota_project.ota_project(x, seed, s,
                                                           rademacher)),
+        device_ms=device_ms(lambda: ota_project.ota_project(x, seed, s,
+                                                            rademacher)),
         plain_ms=cuda_ms(lambda: ref.ota_project_ref(x, seed, s, rademacher)),
         library_ms=cuda_ms(lambda: torch.bmm(A, xt)),
+        library_device_ms=device_ms(lambda: torch.bmm(A, xt)),
         bound=bound(4 * (m * n_blocks * c + m * n_blocks * s), n_ops))
 
 
@@ -255,16 +321,20 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
         bitwise=bool(torch.equal(r, r_ref)),
         kernel_ms=cuda_ms(lambda: ota_project.ota_project_t(y, seed, c,
                                                             rademacher)),
+        device_ms=device_ms(lambda: ota_project.ota_project_t(y, seed, c,
+                                                              rademacher)),
         plain_ms=cuda_ms(lambda: ref.ota_project_t_ref(y, seed, c,
                                                        rademacher)),
         library_ms=cuda_ms(lambda: torch.bmm(A_t, yt)),
+        library_device_ms=device_ms(lambda: torch.bmm(A_t, yt)),
         bound=bound(4 * (m * n_blocks * s + m * n_blocks * c), n_ops))
 
 
-def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen):
+def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
+                    rademacher: bool = True):
     import torch
     from repro_torch.core.amp import amp_blocked_core
-    from repro_torch.kernels import amp_fused, ref
+    from repro_torch.kernels import amp_fused, build, layout, ref
     seed = 777
     # a block-sparse signal (k/s = 1/8, well inside AMP's recovery region at
     # s/c = 1/4) observed with noise, as the main path's y carries AWGN.
@@ -272,14 +342,15 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen):
     # support of the near-zero entries turns on rounding: there two plain
     # float32 and float64 decodes of one input already differ past the bar
     x = block_sparse(n_blocks, c, s // 8, gen, device)
-    yb = ref.ota_project_ref(x, seed, s) \
+    yb = ref.ota_project_ref(x, seed, s, rademacher) \
         + 0.01 * torch.randn(n_blocks, s, generator=gen, device=device)
-    out = amp_fused.amp_decode_fused(yb, seed, c, iters=iters)
-    want = amp_blocked_core(yb, seed, c, iters=iters, use_kernel=False)
-    again = amp_fused.amp_decode_fused(yb, seed, c, iters=iters)
+    kw = dict(iters=iters, rademacher=rademacher)
+    out = amp_fused.amp_decode_fused(yb, seed, c, **kw)
+    want = amp_blocked_core(yb, seed, c, use_kernel=False, **kw)
+    again = amp_fused.amp_decode_fused(yb, seed, c, **kw)
     half = n_blocks // 2
     part = amp_fused.amp_decode_fused(yb[half:].contiguous(), seed, c,
-                                      iters=iters, id_offset=half)
+                                      id_offset=half, **kw)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(out, want)
     check(torch.allclose(out, want, rtol=1e-4, atol=1e-5),
@@ -293,15 +364,26 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen):
     check(recovery < 0.2, f"amp_fused: relative recovery error {recovery}")
     entries = n_blocks * s * c
     n_ops = (2 * iters + 1) * 2 * entries + HASH_OPS * entries
+    if not rademacher:
+        n_ops += GAUSS_EXTRA_OPS * entries
     return dict(
         kernel="amp_fused", shape=[n_blocks, s, c], iters=iters,
-        tol="rtol=1e-4 atol=1e-5; id_offset sub-range bitwise",
-        max_abs_err=abs_err, max_rel_err=rel_err, recovery_rel_err=recovery,
-        kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(
-            yb, seed, c, iters=iters)),
-        plain_ms=cuda_ms(lambda: amp_blocked_core(yb, seed, c, iters=iters,
-                                                  use_kernel=False)),
-        library_ms=None, bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
+        entries="rademacher" if rademacher else "gaussian",
+        cluster=layout.amp_cluster_size(s, c),
+        smem_bytes_per_cta=build.library().amp_fused_smem_bytes(
+            s, c, layout.amp_cluster_size(s, c),
+            layout.amp_row_segments(s, c), int(rademacher)),
+        tol="rtol=1e-4 atol=1e-5; two runs and id_offset sub-range bitwise",
+        max_abs_err=abs_err, max_rel_err=rel_err,
+        bitwise=bool(torch.equal(out, want)), recovery_rel_err=recovery,
+        kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
+                                                             **kw)),
+        device_ms=device_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
+                                                               **kw)),
+        plain_ms=cuda_ms(lambda: amp_blocked_core(yb, seed, c,
+                                                  use_kernel=False, **kw)),
+        library_ms=None, library_device_ms=None,
+        bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
 
 
 # ---------------------------------------------------------------------------
@@ -590,9 +672,13 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build(verbose=True)
     build.library()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              library=build.library_path().name))
+              library=build.library_path().name,
+              ptxas=ptxas_summary(log.getvalue())))
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -618,8 +704,12 @@ def main() -> int:
         check_ota_project(1, 64, 1024, 256, False, device, gen),
         check_ota_project_t(1, 64, 256, 1024, True, device, gen),
         check_ota_project_t(1, 64, 256, 1024, False, device, gen),
+        check_amp_fused(n_blocks, c, s, cfg.amp_iters, device, gen,
+                        rademacher=False),
         check_amp_fused(64, 1024, 256, 10, device, gen),
     ]
+    for rec in [*main_checks.values(), *extra]:
+        rec["bound_share"] = rec["bound"][0] / rec["device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
               other_shapes=extra, not_ported=[]))
 
@@ -642,7 +732,9 @@ def main() -> int:
             launches=paths[KERNEL_PATH[name]][name],
             max_abs_err=chk["max_abs_err"], ms=chk["kernel_ms"],
             plain_ms=chk["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=chk["library_ms"], shape=chk["shape"],
+            library_ms=chk["library_ms"], device_ms=chk["device_ms"],
+            library_device_ms=chk["library_device_ms"],
+            bound_share=bound_ms / chk["device_ms"], shape=chk["shape"],
             max_rel_err=chk["max_rel_err"], kernel_ms=chk["kernel_ms"],
             ported=True, path=KERNEL_PATH[name],
             launches_per_path={p: n[name] for p, n in paths.items()}))

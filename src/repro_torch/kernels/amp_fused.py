@@ -7,21 +7,30 @@ Replaces the TPU kernel ``repro/kernels/amp_fused.py::amp_decode_fused_pallas``
 What bounds it on an H100: operations.  A decode of ``iters`` iterations
 makes ``2 * iters + 1`` products with each block's A (the adjoint and the
 forward product per iteration, then the debias), about
-``2 * (2 * iters + 1) * s * c`` FLOPs per block, plus the integer hash of
-A's entries, while only y in and x out touch device memory.  The Pallas
-kernel keeps a chunk's A in VMEM; on Hopper one block's A (16 MiB at
-1024 x 4096) is far beyond the 227 KB of shared memory.  So the CUDA kernel
-(``csrc/amp_fused.cu``) runs one CTA per block, keeps x, z, y and the row
-hashes resident in shared memory for the whole decode, and regenerates A
-from the hash in every product.  Its reductions are deterministic, so a
-sub-range decoded with ``id_offset`` equals the full decode's rows bitwise.
-At the main path's two blocks it occupies 2 of the card's 132 SMs.
+``2 * (2 * iters + 1) * s * c`` FLOPs per block, while only y in and x out
+touch device memory.  The Pallas kernel keeps a chunk's A in VMEM; on
+Hopper one block's A (16 MiB at 1024 x 4096) is far beyond the 227 KB of
+one SM's shared memory.
+
+So the CUDA kernel (``csrc/amp_fused.cu``) spreads each block over a
+thread-block cluster of K CTAs on neighbouring SMs, which read each
+other's shared memory (DSMEM): K = 16 at the main path's 1024 x 4096, a
+function of the block's shape only (:func:`layout.amp_cluster_size`).
+CTA k owns a slice of the columns (x, the adjoint, the threshold) and a
+slice of the rows (the forward product's final sum, z' and y), and every
+CTA keeps a whole copy of z.  Rademacher entries are hashed once per
+decode and kept as sign bits in shared memory (32 KB per CTA at K = 16);
+Gaussian entries are made from the hash in every product.  The partial
+sums cross CTAs in rank order, with no atomics, so runs are bitwise
+repeatable and a sub-range decoded with ``id_offset`` equals the full
+decode's rows bitwise.  At the main path's two blocks the decode runs on
+32 SMs.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, layout, ref
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -55,16 +64,20 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
                          f"got {tuple(yb.shape)}")
     n_blocks, s_block = yb.shape
     lib = build.library()
-    smem = lib.amp_fused_smem_bytes(s_block, c)
+    k = layout.amp_cluster_size(s_block, c)
+    g = layout.amp_row_segments(s_block, c)
+    smem = lib.amp_fused_smem_bytes(s_block, c, k, g, int(rademacher))
     if smem > 232448:
-        raise ValueError(f"amp_decode_fused: a {s_block} x {c} block needs "
-                         f"{smem} bytes of shared memory, above 227 KB")
+        raise ValueError(f"amp_decode_fused: a {s_block} x {c} block on "
+                         f"{k} CTAs needs {smem} bytes of shared memory per "
+                         f"CTA, above 227 KB")
     xb = torch.empty(n_blocks, c, dtype=torch.float32, device=yb.device)
     seed_dev = build.device_u32(seed, yb.device)
     offset_dev = build.device_u32(id_offset, yb.device)
     rc = lib.amp_fused_launch(
         yb.data_ptr(), seed_dev.data_ptr(), offset_dev.data_ptr(),
-        xb.data_ptr(), n_blocks, s_block, c, int(iters), float(threshold_mult),
+        xb.data_ptr(), n_blocks, s_block, c, k, g, int(iters),
+        float(threshold_mult),
         int(debias), int(rademacher), ref.entry_scale(s_block),
         torch.cuda.current_stream(yb.device).cuda_stream)
     build.check(rc, "amp_decode_fused")

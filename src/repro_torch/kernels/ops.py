@@ -40,7 +40,7 @@ def amp_decode_fused(yb: torch.Tensor, *, seed, c: int, iters: int,
     """Single-launch fused AMP decode (kernels/amp_fused.py).
 
     ``nb_tile`` only chunks the plain version on the CPU; the CUDA kernel
-    decodes one block per CTA.
+    decodes one block per thread-block cluster.
     """
     return amp_fused.amp_decode_fused(
         yb, seed, c, iters=iters, threshold_mult=threshold_mult,

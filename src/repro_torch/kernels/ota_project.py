@@ -9,11 +9,17 @@ helpers ``_tile_A`` and ``_splitmix32``).  Plain version:
 What bounds it on an H100: operations.  ``y[m, b] = A_b x[m, b]`` moves
 only x and y through device memory, while every entry of A_b (16 MiB per
 block at the main path's 1024 x 4096) is made from about ten integer
-operations of the hash and then takes one multiply-add per device.  The
-CUDA kernel (``csrc/ota_project.cu``) never stores A: a CTA makes each entry
-of its 32-row tile once and applies it to all M devices' vectors, which
-it stages in shared memory, so the hash is paid once per entry and not
-once per device.
+operations of the hash and then takes one float64 multiply-add per device.
+The CUDA kernel (``csrc/ota_project.cu``) never stores A.  It cuts the work
+as :mod:`repro_torch.kernels.layout` says: a cluster of up to 8 CTAs splits
+one block's columns for one 128-row tile and one group of at most 8
+devices (25 devices: 6, 6, 6, 7, so no accumulator adds zeros), and each
+thread holds a register tile of 4 rows x the group's devices.  Each entry
+it makes feeds every device of the group, and each x value it loads from
+shared memory feeds 4 rows, through one float64 FMA (the sign of a
+Rademacher entry as +-1.0).  The CTAs' partials are added in rank order
+through distributed shared memory.  At 25 devices x 2 blocks x 4096 -> 1024
+the grid has 512 CTAs.
 
 The adjoint replaces ``ota_project_t_pallas`` (body ``_t_kernel``) of the
 same TPU module.  Plain version: :func:`repro_torch.kernels.ref.ota_project_t_ref`.
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, layout, ref
 
 #: launches of the forward CUDA kernel since the last reset
 launches = 0
@@ -66,7 +72,8 @@ def _launch(x: torch.Tensor, seed, s_block: int,
     seed_dev = build.device_u32(seed, x.device)
     rc = build.library().ota_project_launch(
         x.data_ptr(), seed_dev.data_ptr(), y.data_ptr(), m, n_blocks, c,
-        s_block, int(rademacher), ref.entry_scale(s_block),
+        s_block, layout.ota_cluster_size(c), layout.ota_device_groups(m),
+        int(rademacher), ref.entry_scale(s_block),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "ota_project")
     launches += 1

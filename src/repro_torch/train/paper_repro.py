@@ -29,9 +29,12 @@ from repro_torch.optim.optim import Optimizer
 
 
 def init_linear(dim: int, n_classes: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zero weights and bias of the single-layer model on ``device`` (the
+    card for ``None``, as at every entry point)."""
+    dev = resolve_device(device)
     return {"w": torch.zeros((dim, n_classes), dtype=torch.float32,
-                             device=device),
-            "b": torch.zeros((n_classes,), dtype=torch.float32, device=device)}
+                             device=dev),
+            "b": torch.zeros((n_classes,), dtype=torch.float32, device=dev)}
 
 
 def predict(params, x: torch.Tensor) -> torch.Tensor:

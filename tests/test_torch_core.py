@@ -174,7 +174,11 @@ def test_amp_blocked_core_id_offset_subrange_bitwise():
 
 def test_amp_decode_dispatch_matches_reference_routes():
     """amp_decode takes the same route as the reference: fused for
-    use_kernel, the chunked loop past chunk_blocks, else launch-per-op."""
+    use_kernel, the chunked loop past chunk_blocks, else launch-per-op.
+
+    Nine iterations, not the eight of ``tests/test_amp_fused.py``'s
+    dispatch test: that test counts the reference's traces of its fused
+    kernel, and a trace this test left in the same worker would hide one."""
     d, c, sb = 1024, 128, 64
     x = _block_sparse(d, c, sb // 4, 4)
     for uk in (False, True):
@@ -183,6 +187,6 @@ def test_amp_decode_dispatch_matches_reference_routes():
         pj, pt = jproj.BlockedProjector(**kw), tproj.BlockedProjector(**kw)
         y = np.asarray(jproj.BlockedProjector(
             **{**kw, "use_kernel": False}).project(jnp.asarray(x)))
-        xj = np.asarray(jamp.amp_decode(jnp.asarray(y), pj, iters=8))
-        xt = tamp.amp_decode(_t(y), pt, iters=8).numpy()
+        xj = np.asarray(jamp.amp_decode(jnp.asarray(y), pj, iters=9))
+        xt = tamp.amp_decode(_t(y), pt, iters=9).numpy()
         np.testing.assert_allclose(xt, xj, **AMP_TOL)

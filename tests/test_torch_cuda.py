@@ -45,16 +45,36 @@ def test_ef_sparsify_bitwise(dev, m, n):
     assert torch.equal(sp, sr) and torch.equal(nd, dr)
 
 
-@pytest.mark.parametrize("nb,c,sb", SHAPES)
+# (n_blocks, c, s_block): SHAPES and the main path's 2 blocks of 4096 -> 1024
+P_SHAPES = SHAPES + [(2, 4096, 1024)]
+
+
+@pytest.mark.parametrize("nb,c,sb", P_SHAPES)
 @pytest.mark.parametrize("rademacher", [True, False])
-@pytest.mark.parametrize("m", [1, 3, 25])
+@pytest.mark.parametrize("m", [1, 3, 25, 33])
 def test_ota_project(dev, nb, c, sb, rademacher, m):
     x = torch.randn(m, nb, c, generator=_gen(dev, nb * c + m), device=dev)
     seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
+    before = ota_project.launches
     y = ota_project.ota_project(x, seed, sb, rademacher)
-    np.testing.assert_allclose(
-        y.cpu().numpy(), ref.ota_project_ref(x, seed, sb, rademacher).cpu().numpy(),
-        rtol=3e-5, atol=3e-5)
+    assert ota_project.launches == before + 1
+    want = ref.ota_project_ref(x, seed, sb, rademacher)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               rtol=3e-5, atol=3e-5)
+    assert torch.equal(y, ota_project.ota_project(x, seed, sb, rademacher))
+    if (nb, c, sb) == (2, 4096, 1024) and rademacher:
+        # bitwise with the plain version at the main path's shape, as the
+        # kernel it replaces was
+        assert torch.equal(y, want)
+
+
+def _noisy_block_sparse(nb, c, sb, rademacher, gen, dev):
+    x = torch.zeros(nb, c, device=dev)
+    for b in range(nb):
+        idx = torch.randperm(c, generator=gen, device=dev)[:max(1, sb // 8)]
+        x[b, idx] = torch.randn(idx.numel(), generator=gen, device=dev)
+    return ref.ota_project_ref(x, 9, sb, rademacher) \
+        + 0.01 * torch.randn(nb, sb, generator=gen, device=dev)
 
 
 @pytest.mark.parametrize("rademacher", [True, False])
@@ -73,6 +93,49 @@ def test_amp_fused(dev, rademacher):
     part = amp_fused.amp_decode_fused(yb[3:].contiguous(), 9, c, iters=20,
                                       rademacher=rademacher, id_offset=3)
     assert torch.equal(part, out[3:])
+
+
+# (n_blocks, s_block, c, iters): the main path's decode (clusters of 16
+# CTAs), a ragged one (clusters of 2, 500-column slices), more blocks than
+# the card holds at once of one-CTA clusters and of 4-CTA clusters
+AMP_SHAPES = [(2, 1024, 4096, 20), (3, 100, 1000, 20), (512, 32, 64, 20),
+              (300, 256, 1024, 10)]
+
+
+@pytest.mark.parametrize("nb,sb,c,iters", AMP_SHAPES)
+@pytest.mark.parametrize("rademacher", [True, False])
+def test_amp_fused_clusters(dev, nb, sb, c, iters, rademacher):
+    """The bar against the plain decode, two runs bitwise, and an
+    ``id_offset`` sub-range bitwise the full decode's rows."""
+    yb = _noisy_block_sparse(nb, c, sb, rademacher, _gen(dev, nb + c), dev)
+    before = amp_fused.launches
+    out = amp_fused.amp_decode_fused(yb, 9, c, iters=iters,
+                                     rademacher=rademacher)
+    assert amp_fused.launches == before + 1
+    want = amp_blocked_core(yb, 9, c, iters=iters, rademacher=rademacher)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    again = amp_fused.amp_decode_fused(yb, 9, c, iters=iters,
+                                       rademacher=rademacher)
+    assert torch.equal(out, again)
+    lo = nb // 3 + 1
+    part = amp_fused.amp_decode_fused(yb[lo:].contiguous(), 9, c,
+                                      iters=iters, rademacher=rademacher,
+                                      id_offset=lo)
+    assert torch.equal(part, out[lo:])
+
+
+def test_amp_fused_shapes_in_any_order(dev):
+    """A launch of a small cluster shape does not cap a later, larger one:
+    each launch's shared memory is its own, whatever ran before."""
+    gen = _gen(dev, 17)
+    for nb, sb, c in [(4, 256, 1024), (2, 1024, 4096), (3, 100, 1000),
+                      (2, 1024, 4096)]:
+        yb = _noisy_block_sparse(nb, c, sb, True, gen, dev)
+        out = amp_fused.amp_decode_fused(yb, 9, c, iters=5)
+        want = amp_blocked_core(yb, 9, c, iters=5)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
 
 
 # (n_blocks, c, s_block): bench_kernels.py's shapes and a ragged c that is

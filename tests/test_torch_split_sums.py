@@ -1,0 +1,149 @@
+"""The CUDA kernels' split float64 sums, emulated on the CPU.
+
+``csrc/amp_fused.cu`` spreads one AMP block over a cluster of K CTAs and
+``csrc/ota_project.cu`` splits one block's columns over a cluster and its
+warps.  Each cuts a float64 sum into partials and adds them in a fixed
+order, which changes only the order of float64 adds.  Here each product of
+the plain versions is cut into exactly the slices that
+``repro_torch.kernels.layout`` gives the kernels, the partials are added in
+the kernels' order, and the float32 result must equal the unsplit plain
+version bitwise.  The emulation lives in this file, not in the package.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.amp import _sqrt_f32, amp_blocked_core, soft_threshold
+from repro_torch.kernels import layout, ref
+
+
+def _ordered(parts):
+    """Partials added in the given order, starting from 0.0 as the kernels do."""
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total = total + p
+    return total
+
+
+def _amp_split(yb, seed, c, iters, rademacher=True, threshold_mult=1.3):
+    """amp_blocked_core's decode with every float64 sum cut as the kernel
+    cuts it: the adjoint by the G row segments, the forward product by the K
+    CTAs' column slices, ||z||^2 and the debias dots by the K row slices."""
+    n_blocks, s = yb.shape
+    k = layout.amp_cluster_size(s, c)
+    g = layout.amp_row_segments(s, c)
+    cols, rows = layout.bounds(c, k), layout.bounds(s, k)
+    segs = layout.bounds(s, g)
+    A = ref.block_matrix_ref(seed, torch.arange(n_blocks), s, c,
+                             rademacher).double()
+
+    def adjoint(z):
+        zd = z.double()
+        return _ordered([torch.einsum("isc,is->ic", A[:, lo:hi], zd[:, lo:hi])
+                         for lo, hi in segs]).float()
+
+    def forward(x):
+        xd = x.double()
+        return _ordered([torch.einsum("isc,ic->is", A[:, :, lo:hi],
+                                      xd[:, lo:hi])
+                         for lo, hi in cols]).float()
+
+    def dot(a, b):
+        prod = a.double() * b.double()
+        return _ordered([prod[:, lo:hi].sum(-1, keepdim=True)
+                         for lo, hi in rows])
+
+    sqrt_s = _sqrt_f32(s)
+    x = torch.zeros((n_blocks, c), dtype=torch.float32)
+    z = yb
+    for _ in range(iters):
+        sigma = torch.sqrt(dot(z, z)).float() / sqrt_s
+        x = soft_threshold(x + adjoint(z), threshold_mult * sigma)
+        onsager = z * ((x != 0.0).sum(dim=-1, keepdim=True) / s)
+        z = yb - forward(x) + onsager
+    ax = forward(x)
+    factor = dot(ax, yb) / torch.clamp(dot(ax, ax), min=1e-12)
+    return x * torch.clamp(factor.float(), 1.0, 2.0), (k, g)
+
+
+def _noisy_block_sparse(n_blocks, c, s, seed, rademacher=True):
+    rs = np.random.RandomState(seed)
+    x = np.zeros((n_blocks, c), np.float32)
+    for b in range(n_blocks):
+        x[b, rs.permutation(c)[:s // 8]] = rs.randn(s // 8)
+    y = ref.ota_project_ref(torch.from_numpy(x), 777, s, rademacher)
+    return y + torch.from_numpy(0.01 * rs.randn(n_blocks, s).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_blocks,s,c,want_k", [
+    (2, 1024, 4096, 16),   # the main path's decode
+    (3, 100, 1000, 2),     # ragged: column slices of 500, words of 32 + 20
+])
+def test_amp_split_sums_bitwise(n_blocks, s, c, want_k):
+    yb = _noisy_block_sparse(n_blocks, c, s, seed=s + c)
+    split, (k, g) = _amp_split(yb, 777, c, iters=20)
+    assert k == want_k and k > 1 and g >= 1
+    plain = amp_blocked_core(yb, 777, c, iters=20, use_kernel=False)
+    assert torch.equal(split, plain)
+    assert int((plain != 0).sum()) > 0
+
+
+def test_ota_split_sums_bitwise():
+    """The forward kernel's slicing at the main path's 25 devices x 2
+    blocks x 4096 -> 1024: warp shares in warp order, then the cluster's
+    CTAs in rank order."""
+    m, n_blocks, c, s = 25, 2, 4096, 1024
+    x = torch.from_numpy(np.random.RandomState(0).randn(m, n_blocks, c)
+                         .astype(np.float32))
+    A = ref.block_matrix_ref(12345, torch.arange(n_blocks), s, c).double()
+    xd = x.double()
+    slices = layout.ota_column_slices(c)
+    assert len(slices) == 8 and all(len(r) == layout.OTA_WARPS for r in slices)
+    split = _ordered([
+        _ordered([torch.einsum("bsc,mbc->mbs", A[:, :, lo:hi], xd[..., lo:hi])
+                  for lo, hi in warps])
+        for warps in slices]).float()
+    assert torch.equal(split, ref.ota_project_ref(x, 12345, s))
+
+
+def test_layout_slices_cover_in_order():
+    for n, parts in [(4096, 16), (1000, 2), (1024, 16), (7, 3), (5, 8)]:
+        b = layout.bounds(n, parts)
+        assert b[0][0] == 0 and b[-1][1] == n
+        assert all(hi == lo2 for (_, hi), (lo2, _) in zip(b, b[1:]))
+        widths = {hi - lo for lo, hi in b}
+        assert max(widths) - min(widths) <= 1
+    for c in (64, 1000, 4096, 10007):
+        flat = [w for r in layout.ota_column_slices(c) for w in r]
+        assert flat[0][0] == 0 and flat[-1][1] == c
+        assert all(hi == lo2 for (_, hi), (lo2, _) in zip(flat, flat[1:]))
+
+
+@pytest.mark.parametrize("s,c,k", [(1024, 4096, 16), (256, 1024, 4),
+                                   (100, 1000, 2), (128, 256, 1),
+                                   (32, 64, 1), (4, 8192, 4)])
+def test_amp_cluster_size(s, c, k):
+    """K depends on the block's shape only; every CTA keeps >= 256 columns
+    and >= 1 row, and the adjoint's G row segments fit the CTA's warps."""
+    assert layout.amp_cluster_size(s, c) == k
+    assert c // k >= layout.AMP_MIN_COLUMNS or k == 1
+    g = layout.amp_row_segments(s, c)
+    assert 1 <= g <= s and g * layout.amp_words(s, c) <= max(
+        layout.AMP_WARPS, layout.amp_words(s, c))
+
+
+@pytest.mark.parametrize("m,groups,sizes", [
+    (1, 1, {1}), (3, 1, {3}), (8, 1, {8}), (25, 4, {6, 7}), (33, 5, {6, 7}),
+    (64, 8, {8})])
+def test_ota_device_groups_not_padded(m, groups, sizes):
+    assert layout.ota_device_groups(m) == groups
+    got = {hi - lo for lo, hi in layout.bounds(m, groups)}
+    assert got == sizes and max(got) <= layout.OTA_MAX_DEVICES
+
+
+def test_ota_grid_fills_the_card_at_the_main_shape():
+    """At 25 devices x 2 blocks x 4096 -> 1024: at least 2 x 132 CTAs."""
+    clusters, groups = layout.ota_cluster_size(4096), layout.ota_device_groups(25)
+    tiles = -(-1024 // layout.OTA_TILE_ROWS)
+    assert (clusters, groups, tiles) == (8, 4, 8)
+    assert clusters * groups * 2 * tiles >= 2 * 132

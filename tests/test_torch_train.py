@@ -214,3 +214,16 @@ def test_config_is_a_field_copy():
             == [f.name for f in dataclasses.fields(JaxOTAConfig)])
     assert (dataclasses.asdict(TorchOTAConfig())
             == dataclasses.asdict(JaxOTAConfig()))
+
+
+def test_init_linear_defaults_to_the_card(monkeypatch):
+    """``device="cpu"`` builds on the CPU; ``None`` is the card, as at every
+    entry point, and raises where there is none."""
+    params = tpr.init_linear(64, 10, "cpu")
+    assert params["w"].shape == (64, 10) and params["b"].shape == (10,)
+    assert all(v.device.type == "cpu" and not v.any() for v in params.values())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpr.init_linear(64, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpr.init_linear(64, 10, None)
