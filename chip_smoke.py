@@ -17,13 +17,23 @@ Phases, one JSON line each:
             the same CUDA tensors, at the main path's shapes and at the
             "medium" shape of ``benchmarks/bench_kernels.py``: ef_sparsify
             bitwise, ota_project and its adjoint ota_project_t at
-            rtol = atol = 3e-5 (Rademacher and Gaussian entries), amp_fused
+            rtol = atol = 3e-5 (Rademacher and Gaussian entries; the
+            adjoint bitwise with Rademacher entries), amp_fused
             at rtol 1e-4 / atol 1e-5, two runs bitwise and an ``id_offset``
-            sub-range bitwise.  Two times by CUDA events for each kernel
-            and each ``torch.bmm`` yardstick: per call (median of single
-            calls, Python wrapper included) and device time (50
-            back-to-back launches between one event pair, divided by 50),
-            with the share of bound ``bound_ms / device_ms``;
+            sub-range bitwise.  Each record times the kernel four ways:
+            ``kernel_ms`` per call (median of single calls between CUDA
+            events, Python wrapper included); ``graph_device_ms``, the
+            kernel's own device time (50 calls captured in one CUDA graph,
+            the graph replayed, the time over the calls: no host work
+            between the kernels); ``device_ms``, the rate of 50
+            back-to-back wrapper calls between one event pair, which is
+            the host's enqueue rate wherever the wrapper takes longer than
+            the kernel; and ``host_us``, the host's time per wrapper call
+            (1000 calls with no synchronise).  ``bound_share`` is
+            ``bound_ms / graph_device_ms``: above 1 where the inputs sat in
+            the 50 MB L2 across the replayed calls.  Each ``torch.bmm``
+            yardstick has ``library_ms``, ``library_device_ms`` and
+            ``library_graph_ms`` the same way;
 4. slice    the port's ``run_federated`` at the paper's full scale: the
             single-layer model (d = 7850) on the MNIST surrogate, M = 25
             devices of B = 1000 samples, 60 000 / 10 000 samples, blocked
@@ -38,7 +48,9 @@ Phases, one JSON line each:
             1024 -> 4096, 20 iterations, noisy y): exactly 20 launches of
             ota_project_t and 21 of ota_project, and the result within
             rtol 1e-4 / atol 1e-5 of the plain projector's decode and of
-            the fused kernel's; its time beside both;
+            the fused kernel's; its time beside both, per call and by
+            CUDA-graph replay (``unfused_graph_ms``, ``fused_graph_ms``:
+            10 decodes captured in one graph);
 6. engine   the port's ``run_compiled`` at the slice's scale and config:
             its accuracies and losses equal the slice phase's
             ``run_federated`` run, a checkpointed run stopped at round 10
@@ -82,8 +94,15 @@ GAUSS_EXTRA_OPS = 20
 
 STEPS = 20
 WARMUP, REPS = 3, 20
-#: back-to-back launches between one event pair for a device time
+#: back-to-back launches between one event pair for ``device_ms``, and
+#: calls captured in one CUDA graph for ``graph_device_ms``
 DEVICE_REPS = 50
+#: replays of that graph between one event pair
+GRAPH_REPLAYS = 10
+#: whole decodes captured in one CUDA graph for the unfused_decode phase
+DECODE_GRAPH_CALLS = 10
+#: wrapper calls timed on the host's clock for ``host_us``
+HOST_CALLS = 1000
 
 _SOURCES = "src/repro_torch/kernels"
 KERNELS = {
@@ -148,9 +167,12 @@ def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS) -> float:
 
 
 def device_ms(fn, warmup: int = WARMUP, n: int = DEVICE_REPS) -> float:
-    """Device time of ``fn()``: ``n`` calls back to back between one pair of
-    CUDA events, after warm-up, divided by ``n``.  The host enqueues ahead
-    of the card, so the wrapper's time hides behind the kernels' own."""
+    """The rate of back-to-back calls of ``fn()``: ``n`` calls between one
+    pair of CUDA events, after warm-up, divided by ``n``.  The host enqueues
+    each call while the card runs the one before, so this is the kernel's
+    device time only where the kernel outlasts the wrapper's host work (as
+    ``amp_fused`` does); for a kernel of a few microseconds it is the host's
+    enqueue rate.  :func:`graph_ms` isolates the kernel."""
     import torch
     for _ in range(warmup):
         fn()
@@ -162,6 +184,69 @@ def device_ms(fn, warmup: int = WARMUP, n: int = DEVICE_REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, warmup: int = WARMUP, n: int = DEVICE_REPS,
+             replays: int = GRAPH_REPLAYS) -> float:
+    """Device time of one ``fn()`` with no host work around it: after
+    warm-up on a side stream, ``n`` calls are captured in one CUDA graph,
+    the graph is replayed ``replays`` times between one pair of CUDA events,
+    and the time is divided by ``n * replays``.  What remains besides the
+    kernels is the graph's gap from one kernel node to the next."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def host_us(fn, n: int = HOST_CALLS) -> float:
+    """Host time of one ``fn()`` in microseconds: ``n`` calls on the host's
+    clock with no synchronise between them, divided by ``n``.  The card
+    drains the queue afterwards; only a kernel longer than the wrapper
+    (``amp_fused``) can make the host wait for a full launch queue."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def timings(fn, plain, library=None) -> dict:
+    """Every time of a kernel check: the kernel's wrapper ``fn`` four ways,
+    its plain version per call, and the one-call yardstick ``library``
+    (``None`` where there is none) per call, back to back and by replay."""
+    out = dict(kernel_ms=cuda_ms(fn), device_ms=device_ms(fn),
+               graph_device_ms=graph_ms(fn), host_us=host_us(fn),
+               plain_ms=cuda_ms(plain))
+    if library is None:
+        out.update(library_ms=None, library_device_ms=None,
+                   library_graph_ms=None)
+    else:
+        out.update(library_ms=cuda_ms(library),
+                   library_device_ms=device_ms(library),
+                   library_graph_ms=graph_ms(library))
+    return out
 
 
 def ptxas_summary(log: str) -> list:
@@ -247,10 +332,8 @@ def check_ef_sparsify(m: int, n: int, k: int, device, gen):
         kernel="ef_sparsify", shape=[m, n], tol="bitwise",
         max_abs_err=max(errors(sp, sp_ref)[0], errors(nd, nd_ref)[0]),
         max_rel_err=0.0,
-        kernel_ms=cuda_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau)),
-        device_ms=device_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau)),
-        plain_ms=cuda_ms(lambda: ref.ef_sparsify_ref(g, delta, tau)),
-        library_ms=None, library_device_ms=None,
+        **timings(lambda: ef_sparsify.ef_sparsify(g, delta, tau),
+                  lambda: ref.ef_sparsify_ref(g, delta, tau)),
         bound=bound(n_bytes, 3 * m * n))
 
 
@@ -282,13 +365,9 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
         entries="rademacher" if rademacher else "gaussian",
         tol="rtol=atol=3e-5", max_abs_err=abs_err, max_rel_err=rel_err,
         bitwise=bool(torch.equal(y, y_ref)),
-        kernel_ms=cuda_ms(lambda: ota_project.ota_project(x, seed, s,
-                                                          rademacher)),
-        device_ms=device_ms(lambda: ota_project.ota_project(x, seed, s,
-                                                            rademacher)),
-        plain_ms=cuda_ms(lambda: ref.ota_project_ref(x, seed, s, rademacher)),
-        library_ms=cuda_ms(lambda: torch.bmm(A, xt)),
-        library_device_ms=device_ms(lambda: torch.bmm(A, xt)),
+        **timings(lambda: ota_project.ota_project(x, seed, s, rademacher),
+                  lambda: ref.ota_project_ref(x, seed, s, rademacher),
+                  lambda: torch.bmm(A, xt)),
         bound=bound(4 * (m * n_blocks * c + m * n_blocks * s), n_ops))
 
 
@@ -306,6 +385,10 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
           f"ota_project_t {m}x{n_blocks}x{s}->{c} rademacher={rademacher}: "
           + mismatch(r, r_ref, 3e-5, 3e-5))
     check(torch.equal(r, again), "ota_project_t: two runs differ")
+    # +-y summed in float64 and rounded once, as the plain version sums
+    check(not rademacher or torch.equal(r, r_ref),
+          f"ota_project_t {m}x{n_blocks}x{s}->{c}: Rademacher entries, not "
+          "bitwise equal to its plain version")
     # yardstick: one batched product with A materialised beforehand
     A_t = ref.block_matrix_ref(seed, torch.arange(n_blocks, device=device),
                                s, c, rademacher).transpose(1, 2).contiguous()
@@ -319,14 +402,9 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
         entries="rademacher" if rademacher else "gaussian",
         tol="rtol=atol=3e-5", max_abs_err=abs_err, max_rel_err=rel_err,
         bitwise=bool(torch.equal(r, r_ref)),
-        kernel_ms=cuda_ms(lambda: ota_project.ota_project_t(y, seed, c,
-                                                            rademacher)),
-        device_ms=device_ms(lambda: ota_project.ota_project_t(y, seed, c,
-                                                              rademacher)),
-        plain_ms=cuda_ms(lambda: ref.ota_project_t_ref(y, seed, c,
-                                                       rademacher)),
-        library_ms=cuda_ms(lambda: torch.bmm(A_t, yt)),
-        library_device_ms=device_ms(lambda: torch.bmm(A_t, yt)),
+        **timings(lambda: ota_project.ota_project_t(y, seed, c, rademacher),
+                  lambda: ref.ota_project_t_ref(y, seed, c, rademacher),
+                  lambda: torch.bmm(A_t, yt)),
         bound=bound(4 * (m * n_blocks * s + m * n_blocks * c), n_ops))
 
 
@@ -376,13 +454,9 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
         tol="rtol=1e-4 atol=1e-5; two runs and id_offset sub-range bitwise",
         max_abs_err=abs_err, max_rel_err=rel_err,
         bitwise=bool(torch.equal(out, want)), recovery_rel_err=recovery,
-        kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
-                                                             **kw)),
-        device_ms=device_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
-                                                               **kw)),
-        plain_ms=cuda_ms(lambda: amp_blocked_core(yb, seed, c,
-                                                  use_kernel=False, **kw)),
-        library_ms=None, library_device_ms=None,
+        **timings(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw),
+                  lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
+                                           **kw)),
         bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
 
 
@@ -559,10 +633,14 @@ def run_unfused_decode(n_blocks: int, c: int, s: int, iters: int, device,
         recovery_rel_err=recovery,
         unfused_kernel_ms=cuda_ms(lambda: amp_decode_blocked(
             yb, kproj, iters=iters), reps=10),
+        unfused_graph_ms=graph_ms(lambda: amp_decode_blocked(
+            yb, kproj, iters=iters), n=DECODE_GRAPH_CALLS),
         unfused_plain_ms=cuda_ms(lambda: amp_decode_blocked(
             yb, pproj, iters=iters), reps=10),
         fused_kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(
-            yb, seed, c, iters=iters), reps=10))
+            yb, seed, c, iters=iters), reps=10),
+        fused_graph_ms=graph_ms(lambda: amp_fused.amp_decode_fused(
+            yb, seed, c, iters=iters), n=DECODE_GRAPH_CALLS))
 
 
 # ---------------------------------------------------------------------------
@@ -709,7 +787,7 @@ def main() -> int:
         check_amp_fused(64, 1024, 256, 10, device, gen),
     ]
     for rec in [*main_checks.values(), *extra]:
-        rec["bound_share"] = rec["bound"][0] / rec["device_ms"]
+        rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
               other_shapes=extra, not_ported=[]))
 
@@ -733,8 +811,10 @@ def main() -> int:
             max_abs_err=chk["max_abs_err"], ms=chk["kernel_ms"],
             plain_ms=chk["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=chk["library_ms"], device_ms=chk["device_ms"],
+            graph_device_ms=chk["graph_device_ms"], host_us=chk["host_us"],
             library_device_ms=chk["library_device_ms"],
-            bound_share=bound_ms / chk["device_ms"], shape=chk["shape"],
+            library_graph_ms=chk["library_graph_ms"],
+            bound_share=chk["bound_share"], shape=chk["shape"],
             max_rel_err=chk["max_rel_err"], kernel_ms=chk["kernel_ms"],
             ported=True, path=KERNEL_PATH[name],
             launches_per_path={p: n[name] for p, n in paths.items()}))

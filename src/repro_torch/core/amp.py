@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import div_f32
 from repro_torch.kernels import ops, ref
 
 
@@ -41,18 +42,6 @@ def _sqrt_f32(n: int) -> float:
     return float(np.sqrt(np.float32(n)))
 
 
-def _div_f32(t: torch.Tensor, n) -> torch.Tensor:
-    """``t / n`` as a float32 division on every device.
-
-    On a CUDA tensor torch divides by a python scalar as a multiply by the
-    scalar's reciprocal, which misses the quotient by an ulp where ``1/n``
-    is inexact (``n = 100``, ``sqrt(100) = 10``); a 0-dim tensor divisor,
-    filled on the tensor's device, keeps the true division the CPU, the
-    reference and the fused kernel make.
-    """
-    return t / torch.full((), n, dtype=torch.float32, device=t.device)
-
-
 def amp_decode_dense(y: torch.Tensor, A: torch.Tensor, iters: int = 20,
                      threshold_mult: float = 1.3,
                      debias: bool = True) -> torch.Tensor:
@@ -62,10 +51,10 @@ def amp_decode_dense(y: torch.Tensor, A: torch.Tensor, iters: int = 20,
     x = torch.zeros((d,), dtype=y.dtype, device=y.device)
     z = y
     for _ in range(iters):
-        sigma_hat = _div_f32(torch.linalg.norm(z), sqrt_s)
+        sigma_hat = div_f32(torch.linalg.norm(z), sqrt_s)
         r = x + A.T @ z
         x = soft_threshold(r, threshold_mult * sigma_hat)
-        onsager = z * _div_f32((x != 0.0).sum(), s)
+        onsager = z * div_f32((x != 0.0).sum(), s)
         z = y - A @ x + onsager
     if debias:
         x = _ls_rescale(x, A @ x, y)
@@ -84,10 +73,10 @@ def _dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _amp_step(x, z, y, sqrt_s, s_block, threshold_mult, adjoint, forward):
-    sigma_hat = _div_f32(torch.sqrt(_dot64(z, z)).float(), sqrt_s)
+    sigma_hat = div_f32(torch.sqrt(_dot64(z, z)).float(), sqrt_s)
     r = x + adjoint(z)
     x_new = soft_threshold(r, threshold_mult * sigma_hat)
-    onsager = z * _div_f32((x_new != 0.0).sum(dim=-1, keepdim=True), s_block)
+    onsager = z * div_f32((x_new != 0.0).sum(dim=-1, keepdim=True), s_block)
     return x_new, y - forward(x_new) + onsager
 
 

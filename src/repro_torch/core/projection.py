@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.device import div_f32, resolve_device
 from repro_torch.kernels import ops, ref
 
 
@@ -40,13 +41,19 @@ class DenseProjector:
         return self.s_tilde
 
     def matrix(self, device=None) -> torch.Tensor:
-        """The shared measurement matrix, drawn once per device."""
-        dev = torch.device("cpu" if device is None else device)
+        """The shared measurement matrix, drawn once per device; ``None`` is
+        the card, as at every entry point.
+
+        ``normal(PRNGKey(seed), (s_tilde, d)) / sqrt(s_tilde)`` with a true
+        float32 division, so the card's A is the CPU's bit for bit (the
+        reference's bits where the RNG's are).
+        """
+        dev = resolve_device(device)
         mat = self._cache.get(dev)
         if mat is None:
-            mat = rng.normal(rng.PRNGKey(self.seed, device=dev),
-                             (self.s_tilde, self.d)) / float(
-                np.sqrt(np.float32(self.s_tilde)))
+            mat = div_f32(rng.normal(rng.PRNGKey(self.seed, device=dev),
+                                     (self.s_tilde, self.d)),
+                          float(np.sqrt(np.float32(self.s_tilde))))
             self._cache[dev] = mat
         return mat
 

@@ -35,7 +35,7 @@ from repro_torch.configs.base import OTAConfig
 from repro_torch.core import channel, compression, power
 from repro_torch.core.amp import amp_decode
 from repro_torch.core.projection import DenseProjector, make_projector
-from repro_torch.device import resolve_device
+from repro_torch.device import div_f32, resolve_device
 from repro_torch.kernels import ops
 
 
@@ -174,7 +174,9 @@ class Scheme:
     def decode(self, y: torch.Tensor, step: int,
                ctx: Optional[MACContext] = None) -> torch.Tensor:
         m = ctx.m if ctx is not None else self.m
-        return y / m
+        # a true division: the engine divides by its masked count, a tensor,
+        # and must agree with round_simulated bitwise on the card too
+        return div_f32(y, m)
 
 
 @register_scheme("ideal")

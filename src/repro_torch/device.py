@@ -25,3 +25,18 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def div_f32(t: torch.Tensor, n) -> torch.Tensor:
+    """``t / n`` as a true float32 division on every device.
+
+    On a CUDA tensor torch divides by a python scalar as a multiply by the
+    scalar's float32 reciprocal, which misses the quotient by an ulp where
+    ``1/n`` is inexact (``n = 25``, ``n = 100``).  A 0-dim divisor filled on
+    the tensor's own device (no copy from the host, so no wait for the
+    device's queue) keeps the true division that the CPU and the reference
+    make.  A tensor ``n`` is divided by as it is.
+    """
+    if isinstance(n, torch.Tensor):
+        return t / n
+    return t / torch.full((), n, dtype=torch.float32, device=t.device)

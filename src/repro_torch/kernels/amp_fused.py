@@ -79,7 +79,7 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
         xb.data_ptr(), n_blocks, s_block, c, k, g, int(iters),
         float(threshold_mult),
         int(debias), int(rademacher), ref.entry_scale(s_block),
-        torch.cuda.current_stream(yb.device).cuda_stream)
+        build.current_stream(yb.device))
     build.check(rc, "amp_decode_fused")
     launches += 1
     return xb

@@ -39,7 +39,8 @@ SIGNATURES = {
     "ef_sparsify_launch": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
     "ota_project_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _P]),
-    "ota_project_t_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "ota_project_t_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _P]),
     "amp_fused_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                               _I, _F, _P]),
     "amp_fused_smem_bytes": (_I64, [_I, _I, _I, _I, _I]),
@@ -113,13 +114,25 @@ def build(verbose: bool = False) -> Path:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed.
+
+    Its entry points are bound here once, with their C signatures: ctypes
+    keeps each bound function as an attribute of the library object, so a
+    launch's ``library().name`` is a cache hit and an attribute read.
+    """
     lib = ctypes.CDLL(str(build()))
     for name, (restype, argtypes) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, as an int for
+    ctypes.  torch's raw getter builds no ``torch.cuda.Stream`` object, a
+    few microseconds of host time per launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, name: str) -> None:
@@ -154,16 +167,21 @@ def device_u32(value, device) -> torch.Tensor:
 
 
 def require_cuda_f32(name: str, **tensors) -> None:
-    """Validate what a kernel takes: CUDA, float32, contiguous, one device."""
-    devices = set()
+    """Validate what a kernel takes: CUDA, float32, contiguous, one device.
+
+    Plain attribute tests, since a launch of a few microseconds of device
+    time pays for them on the host every call."""
+    index = None
     for arg, t in tensors.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor, "
                              f"got {t.device}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        devices.add(t.device)
-    if len(devices) > 1:
-        raise ValueError(f"{name}: tensors on several devices {devices}")
+        if index is None:
+            index = t.get_device()
+        elif t.get_device() != index:
+            raise ValueError(f"{name}: {arg} is on {t.device}, the other "
+                             f"tensors on cuda:{index}")

@@ -6,10 +6,16 @@ Replaces the TPU kernel ``repro/kernels/ef_sparsify.py::ef_sparsify_pallas``
 What bounds it on an H100: bytes.  Per entry it reads ``g`` and ``delta``
 and writes ``g_sp`` and ``delta'`` (16 bytes) against one add, one compare
 and one subtract.  The CUDA kernel (``csrc/ef_sparsify.cu``) makes that one
-pass over device memory for all M device rows in one launch, with a
-threshold per row read from device memory (it comes from the on-device
-quantile, so the host never waits for it), and masks the ragged tail of a
-row instead of copying into a padded buffer.
+pass over device memory for all M device rows in one launch: the rows are
+one flat array, each thread moves four floats per access, and takes each
+entry's threshold from device memory by its row (the threshold comes from
+the on-device quantile, so the host never waits for it).  The head and tail
+of the flat range, where rows of odd length leave it off 16-byte alignment,
+are masked single entries instead of a copy into a padded buffer.
+
+At the main path's 25 x 7850 the kernel's work is about a microsecond, less
+than the wrapper's host time, so the wrapper does no more host work than
+the checks, two ``empty_like`` and the launch.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ def _launch(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
     new_delta = torch.empty_like(g)
     rc = build.library().ef_sparsify_launch(
         g.data_ptr(), delta.data_ptr(), tau.data_ptr(), g_sp.data_ptr(),
-        new_delta.data_ptr(), m, n, torch.cuda.current_stream(g.device).cuda_stream)
+        new_delta.data_ptr(), m, n, build.current_stream(g.device))
     build.check(rc, "ef_sparsify")
     launches += 1
     return g_sp, new_delta

@@ -1,11 +1,12 @@
-"""How the CUDA kernels of ``amp_fused`` and ``ota_project`` cut their work.
+"""How the CUDA kernels of ``amp_fused``, ``ota_project`` and
+``ota_project_t`` cut their work.
 
 Pure Python, no torch: the wrappers size their launches from these
 functions, and the CPU tests of the kernels' rounding
 (``tests/test_torch_split_sums.py``) cut the plain products the same way.
 The kernels compute the same bounds with the same integer formula,
-``floor(k * n / parts)`` (``cut`` in ``csrc/amp_fused.cu`` and
-``csrc/ota_project.cu``).
+``floor(k * n / parts)`` (``cut`` in ``csrc/amp_fused.cu``,
+``csrc/ota_project.cu`` and ``csrc/ota_project_t.cu``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,19 @@ OTA_MAX_DEVICES = 8
 #: columns each of them owns when the columns are split
 OTA_MAX_CLUSTER = 8
 OTA_MIN_COLUMNS = 512
+
+#: ``ota_project_t``: a CTA is OTA_T_ROW_GROUPS groups of 128 threads; a
+#: thread owns 2 columns (``t`` and ``t + 128`` of its tile) over its
+#: group's share of the CTA's rows
+OTA_T_COLUMN_THREADS = 128
+OTA_T_ROW_GROUPS = 2
+OTA_T_THREADS = OTA_T_COLUMN_THREADS * OTA_T_ROW_GROUPS
+OTA_T_COLS_PER_THREAD = 2
+OTA_T_TILE_COLS = OTA_T_COLUMN_THREADS * OTA_T_COLS_PER_THREAD
+#: most CTAs in one ``ota_project_t`` cluster (portable), and the fewest
+#: rows each of them sums when the rows are split
+OTA_T_MAX_CLUSTER = 8
+OTA_T_MIN_ROWS = 128
 
 
 def cut(n: int, parts: int, k: int) -> int:
@@ -101,3 +115,39 @@ def ota_column_slices(c: int) -> list[list[tuple[int, int]]]:
         out.append([(lo + a, lo + b) for a, b in bounds(hi - lo, OTA_WARPS)])
     return out
 
+
+def ota_t_cluster_size(s: int) -> int:
+    """CTAs of the cluster that splits one block's rows in ota_project_t:
+    the largest power of two up to 8 that leaves each at least 128 rows.
+    A function of s only, so a block's bits do not depend on how many
+    blocks or devices a launch carries."""
+    return _pow2_at_most(OTA_T_MAX_CLUSTER, lambda k: k * OTA_T_MIN_ROWS <= s)
+
+
+def ota_t_row_slices(s: int) -> list[list[tuple[int, int]]]:
+    """Row slices of ota_project_t: ``[rank][group] -> (lo, hi)``.
+
+    CTA ``rank`` of a cluster owns the contiguous rows ``bounds(s, CS)[rank]``
+    and its row group ``g`` the contiguous share ``bounds(height, 2)[g]`` of
+    them.  A thread sums its share in ascending row order; the groups'
+    partials are added in group order, then the ranks' in rank order.
+    """
+    out = []
+    for lo, hi in bounds(s, ota_t_cluster_size(s)):
+        out.append([(lo + a, lo + b)
+                    for a, b in bounds(hi - lo, OTA_T_ROW_GROUPS)])
+    return out
+
+
+def ota_t_column_tiles(c: int) -> list[tuple[int, int]]:
+    """Column tiles ``[lo, hi)`` of ota_project_t, one cluster each; the
+    last is ragged where 256 does not divide ``c``."""
+    return [(lo, min(lo + OTA_T_TILE_COLS, c))
+            for lo in range(0, c, OTA_T_TILE_COLS)]
+
+
+def ota_t_grid(m: int, n_blocks: int, s: int, c: int) -> tuple[int, int, int]:
+    """Grid of ota_project_t: (clusters' CTAs over the column tiles, blocks,
+    device groups)."""
+    return (ota_t_cluster_size(s) * len(ota_t_column_tiles(c)), n_blocks,
+            ota_device_groups(m))

@@ -23,15 +23,19 @@ the grid has 512 CTAs.
 
 The adjoint replaces ``ota_project_t_pallas`` (body ``_t_kernel``) of the
 same TPU module.  Plain version: :func:`repro_torch.kernels.ref.ota_project_t_ref`.
-It is bound by operations too: ``r[m, b] = A_b^T y[m, b]`` makes every entry
-of A_b from the hash and applies it to M devices, about
-``entries * (HASH_OPS + 2 M)`` operations against ``4 M (s_block + c)``
-bytes per block.  The CUDA kernel (``csrc/ota_project_t.cu``) gives each
-thread one column of A_b and the CTA the row hashes and its devices' y,
-staged in shared memory: each entry is made once per CTA, each thread sums
-its column's rows in ascending order in float64 and rounds once, so the
-result needs no reduction across threads and no atomics.  It runs on the
-projector's adjoint (``BlockedProjector.project_t``) and so once per
+It is bound by integer operations: ``r[m, b] = A_b^T y[m, b]`` makes every
+entry of A_b from the hash (about nine integer operations on an SM's 64
+int32 lanes) and applies it to M devices, against only ``4 M (s_block + c)``
+bytes per block.  The CUDA kernel (``csrc/ota_project_t.cu``) cuts the work
+as :mod:`repro_torch.kernels.layout` says: a cluster of up to 8 CTAs splits
+one 256-column tile's rows, each CTA's two row groups of 128 threads sum
+their halves of its rows in ascending order in float64, and the partials
+are added in group order, then in rank order through distributed shared
+memory by the CTA that writes the column.  Each thread holds a register
+tile of 2 columns x a device group of at most 8, so each staged row hash
+feeds 2 entries and each entry every device of the group.  At the path's
+1 vector x 2 blocks x 1024 -> 4096 the grid has 256 CTAs.  It runs
+on the projector's adjoint (``BlockedProjector.project_t``) and so once per
 iteration of the launch-per-op AMP decode (``amp_decode_blocked``).
 """
 from __future__ import annotations
@@ -74,7 +78,7 @@ def _launch(x: torch.Tensor, seed, s_block: int,
         x.data_ptr(), seed_dev.data_ptr(), y.data_ptr(), m, n_blocks, c,
         s_block, layout.ota_cluster_size(c), layout.ota_device_groups(m),
         int(rademacher), ref.entry_scale(s_block),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        build.current_stream(x.device))
     build.check(rc, "ota_project")
     launches += 1
     return y
@@ -104,8 +108,9 @@ def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
     seed_dev = build.device_u32(seed, y.device)
     rc = build.library().ota_project_t_launch(
         y.data_ptr(), seed_dev.data_ptr(), r.data_ptr(), m, n_blocks, s_block,
-        c, int(rademacher), ref.entry_scale(s_block),
-        torch.cuda.current_stream(y.device).cuda_stream)
+        c, layout.ota_t_cluster_size(s_block), layout.ota_device_groups(m),
+        int(rademacher), ref.entry_scale(s_block),
+        build.current_stream(y.device))
     build.check(rc, "ota_project_t")
     launches_t += 1
     return r

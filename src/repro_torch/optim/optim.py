@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.device import div_f32
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -47,10 +49,11 @@ class Optimizer:
         step = torch.as_tensor(step).to(torch.float32)
         lr = torch.full_like(step, self.lr)
         if self.warmup_steps > 0:
-            lr = lr * torch.clamp(step / self.warmup_steps, max=1.0)
+            lr = lr * torch.clamp(div_f32(step, self.warmup_steps), max=1.0)
         if self.total_steps > 0:
             span = max(self.total_steps - self.warmup_steps, 1)
-            frac = torch.clamp((step - self.warmup_steps) / span, 0.0, 1.0)
+            frac = torch.clamp(div_f32(step - self.warmup_steps, span), 0.0,
+                               1.0)
             lr = lr * (0.5 * (1.0 + torch.cos(math.pi * frac)))
         return lr
 

@@ -102,8 +102,21 @@ def test_dense_projector_matrix():
     pj = jproj.DenseProjector(d=300, s_tilde=148, seed=3)
     pt = tproj.DenseProjector(d=300, s_tilde=148, seed=3)
     # jax.random.normal within rng's measured ulp gap, then / sqrt(s)
-    np.testing.assert_allclose(pt.matrix().numpy(), np.asarray(pj.matrix()),
+    np.testing.assert_allclose(pt.matrix("cpu").numpy(), np.asarray(pj.matrix()),
                                rtol=1e-6, atol=1e-7)
+
+
+def test_dense_matrix_defaults_to_the_card(monkeypatch):
+    """``matrix("cpu")`` builds on the CPU and divides truly (the same bits
+    as ``normal / sqrt(s_tilde)`` there); ``None`` is the card, as at every
+    entry point, and raises where there is none."""
+    pt = tproj.DenseProjector(d=50, s_tilde=148, seed=3)
+    want = rng.normal(rng.PRNGKey(3, device="cpu"), (148, 50)) / float(
+        np.sqrt(np.float32(148)))
+    assert torch.equal(pt.matrix("cpu"), want)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tproj.DenseProjector(d=50, s_tilde=148, seed=3).matrix()
 
 
 def _block_sparse(d, c, per_block, seed):
@@ -122,7 +135,7 @@ def test_amp_decode_dense():
     x = _block_sparse(d, d, 20, 0)
     y = np.asarray(pj.project(jnp.asarray(x)))
     xj = np.asarray(jamp.amp_decode_dense(jnp.asarray(y), pj.matrix(), 15))
-    xt = tamp.amp_decode_dense(_t(y), pt.matrix(), 15).numpy()
+    xt = tamp.amp_decode_dense(_t(y), pt.matrix("cpu"), 15).numpy()
     np.testing.assert_allclose(xt, xj, **AMP_TOL)
     assert np.linalg.norm(xt - x) / np.linalg.norm(x) < 0.2
 

@@ -32,7 +32,8 @@ def _gen(dev, seed):
     return g
 
 
-@pytest.mark.parametrize("m,n", [(1, 5), (3, 10007), (25, 7850)])
+@pytest.mark.parametrize("m,n", [(1, 5), (3, 10007), (25, 7850), (1, 7850),
+                                 (4, 3), (2, 1)])
 def test_ef_sparsify_bitwise(dev, m, n):
     gen = _gen(dev, n)
     g = torch.randn(m, n, generator=gen, device=dev)
@@ -42,6 +43,24 @@ def test_ef_sparsify_bitwise(dev, m, n):
     sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
     sr, dr = ref.ef_sparsify_ref(g, d, tau)
     assert ef_sparsify.launches == before + 1
+    assert torch.equal(sp, sr) and torch.equal(nd, dr)
+
+
+@pytest.mark.parametrize("g_off,d_off", [(1, 1), (2, 2), (3, 3), (1, 2),
+                                         (0, 3)])
+def test_ef_sparsify_offset_views(dev, g_off, d_off):
+    """Inputs that start off a 16-byte boundary: the flat range's head and
+    tail are single entries where all arrays share the offset, and every
+    entry is where they do not."""
+    m, n = 25, 7850
+    gen = _gen(dev, 31 + g_off + d_off)
+    gbuf = torch.randn(m * n + 4, generator=gen, device=dev)
+    dbuf = torch.randn(m * n + 4, generator=gen, device=dev)
+    g = gbuf[g_off:g_off + m * n].view(m, n)
+    d = dbuf[d_off:d_off + m * n].view(m, n)
+    tau = torch.rand(m, generator=gen, device=dev)
+    sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
+    sr, dr = ref.ef_sparsify_ref(g, d, tau)
     assert torch.equal(sp, sr) and torch.equal(nd, dr)
 
 
@@ -138,14 +157,16 @@ def test_amp_fused_shapes_in_any_order(dev):
                                    rtol=1e-4, atol=1e-5)
 
 
-# (n_blocks, c, s_block): bench_kernels.py's shapes and a ragged c that is
-# no multiple of the kernel's 256 columns per CTA
-T_SHAPES = SHAPES + [(2, 4096, 1024), (3, 1000, 100)]
+# (n_blocks, c, s_block): bench_kernels.py's shapes, the path's, a ragged
+# c that is no multiple of the kernel's 256-column tile, and a ragged s
+# that is no multiple of its cluster (777 rows on 4 CTAs: 194 and 195)
+T_SHAPES = SHAPES + [(2, 4096, 1024), (3, 1000, 100), (3, 1000, 777),
+                     (64, 1024, 256)]
 
 
 @pytest.mark.parametrize("nb,c,sb", T_SHAPES)
 @pytest.mark.parametrize("rademacher", [True, False])
-@pytest.mark.parametrize("m", [1, 25])
+@pytest.mark.parametrize("m", [1, 3, 25])
 def test_ota_project_t(dev, nb, c, sb, rademacher, m):
     y = torch.randn(m, nb, sb, generator=_gen(dev, nb * sb + m), device=dev)
     seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
@@ -160,6 +181,24 @@ def test_ota_project_t(dev, nb, c, sb, rademacher, m):
     again = ops.ota_project_t(y, seed=seed, c=c, rademacher=rademacher,
                               use_kernel=True)
     assert torch.equal(r, again)
+    if rademacher and (nb, c, sb) in ((2, 4096, 1024), (64, 1024, 256)):
+        # bitwise with the plain version at the unfused decode's shape and
+        # bench_kernels.py's medium one, as the kernel it replaces was
+        assert torch.equal(r, ref.ota_project_t_ref(y, seed, c, rademacher))
+
+
+def test_ota_project_t_shapes_in_any_order(dev):
+    """A launch of one shape leaves nothing that a later shape depends on
+    (cluster sizes 8, 4, 1 and back)."""
+    gen = _gen(dev, 23)
+    for m, nb, sb, c in [(1, 2, 1024, 4096), (3, 3, 777, 1000),
+                         (25, 5, 16, 64), (1, 2, 1024, 4096),
+                         (3, 3, 777, 1000)]:
+        y = torch.randn(m, nb, sb, generator=gen, device=dev)
+        r = ota_project.ota_project_t(y, 7, c)
+        np.testing.assert_allclose(
+            r.cpu().numpy(), ref.ota_project_t_ref(y, 7, c).cpu().numpy(),
+            rtol=3e-5, atol=3e-5)
 
 
 def test_ota_project_t_adjoint_identity(dev):
@@ -218,3 +257,77 @@ def test_run_federated_on_card_matches_cpu(dev):
     rc = run_federated(xd, yd, xte, yte, cfg, steps=5, eval_every=1,
                        device="cpu")
     np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4, atol=1e-5)
+
+
+def _graph_case(name, dev):
+    """One wrapper call at its path's shape, as a closure over its inputs."""
+    gen = _gen(dev, 41)
+    if name == "ef_sparsify":
+        g = torch.randn(25, 7850, generator=gen, device=dev)
+        d = torch.randn(25, 7850, generator=gen, device=dev)
+        tau = torch.rand(25, generator=gen, device=dev)
+        return lambda: ef_sparsify.ef_sparsify(g, d, tau)
+    if name == "ota_project":
+        x = torch.randn(25, 2, 4096, generator=gen, device=dev)
+        return lambda: ota_project.ota_project(x, 12345, 1024)
+    if name == "ota_project_t":
+        y = torch.randn(1, 2, 1024, generator=gen, device=dev)
+        return lambda: ota_project.ota_project_t(y, 12345, 4096)
+    yb = _noisy_block_sparse(2, 4096, 1024, True, gen, dev)
+    return lambda: amp_fused.amp_decode_fused(yb, 9, 4096, iters=20)
+
+
+@pytest.mark.parametrize("name", ["ef_sparsify", "ota_project",
+                                  "ota_project_t", "amp_fused"])
+def test_wrapper_captured_in_cuda_graph(dev, name):
+    """Each wrapper can be captured in a CUDA graph (as ``chip_smoke.py``
+    times it) and the replayed graph's output equals an eager call."""
+    fn = _graph_case(name, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    captured = captured if isinstance(captured, tuple) else (captured,)
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+def test_dense_matrix_on_card_equals_cpu(dev):
+    """The paper-scale dense A on the card is the CPU's bit for bit, at an
+    s_tilde whose square root is inexact (148), and ``None`` is the card."""
+    from repro_torch.core.projection import DenseProjector
+    proj = DenseProjector(d=300, s_tilde=148, seed=3)
+    on_card = proj.matrix(dev)
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), proj.matrix("cpu"))
+    assert proj.matrix().device.type == "cuda"
+
+
+@pytest.mark.parametrize("scheme", ["ideal", "a_dsgd"])
+def test_engine_equals_run_federated_on_card(dev, scheme):
+    """On the card too the engine equals the looped ``run_federated`` entry
+    for entry: the ideal link divides by M truly in both (the engine's M is
+    a tensor, the loop's a python int)."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.experiments import engine
+    from repro_torch.train.paper_repro import run_federated
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    cfg = OTAConfig(scheme=scheme, s_frac=0.5, k_frac=0.25, p_avg=500.0,
+                    total_steps=6, projection="blocked", block_size=64,
+                    use_kernel=True, amp_iters=6, mean_removal_steps=2)
+    loop = run_federated(xd, yd, xte, yte, cfg, steps=6, lr=1e-3,
+                         eval_every=2)
+    eng = engine.run_compiled(xd, yd, xte, yte, cfg, steps=6, lr=1e-3,
+                              eval_every=2)
+    assert eng.accs == loop.accs and eng.losses == loop.losses
+    assert all(torch.equal(eng.params[k], loop.params[k])
+               for k in loop.params)

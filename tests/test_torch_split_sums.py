@@ -1,8 +1,9 @@
 """The CUDA kernels' split float64 sums, emulated on the CPU.
 
-``csrc/amp_fused.cu`` spreads one AMP block over a cluster of K CTAs and
+``csrc/amp_fused.cu`` spreads one AMP block over a cluster of K CTAs,
 ``csrc/ota_project.cu`` splits one block's columns over a cluster and its
-warps.  Each cuts a float64 sum into partials and adds them in a fixed
+warps, and ``csrc/ota_project_t.cu`` splits one column tile's rows over a
+cluster.  Each cuts a float64 sum into partials and adds them in a fixed
 order, which changes only the order of float64 adds.  Here each product of
 the plain versions is cut into exactly the slices that
 ``repro_torch.kernels.layout`` gives the kernels, the partials are added in
@@ -147,3 +148,85 @@ def test_ota_grid_fills_the_card_at_the_main_shape():
     tiles = -(-1024 // layout.OTA_TILE_ROWS)
     assert (clusters, groups, tiles) == (8, 4, 8)
     assert clusters * groups * 2 * tiles >= 2 * 132
+
+
+def _rows_in_order(A, y):
+    """sum_i A[:, i, :] * y[..., i] in float64, one row at a time in
+    ascending order from 0.0, as a thread of the adjoint kernel adds its
+    rows (a product of a float32 entry and a float32 value is exact in
+    float64, so the kernel's fused multiply-add is this add)."""
+    acc = torch.zeros(*y.shape[:-1], A.shape[-1], dtype=torch.float64)
+    for i in range(A.shape[1]):
+        acc = acc + A[:, i, :] * y[..., i, None]
+    return acc
+
+
+def _ota_t_split(y, seed, c, rademacher):
+    """ota_project_t's product as the kernel computes it: per column tile,
+    each row group of each CTA of the cluster sums its rows one at a time,
+    the groups' partials are added in group order, the CTAs' in rank order,
+    and a Rademacher sum of +-y is scaled once at the end."""
+    n_blocks, s = y.shape[-2:]
+    A = ref.block_matrix_ref(seed, torch.arange(n_blocks), s, c, rademacher)
+    if rademacher:
+        A = torch.where(A > 0, 1.0, -1.0)
+    A, yd = A.double(), y.double()
+    tiles = []
+    for clo, chi in layout.ota_t_column_tiles(c):
+        tiles.append(_ordered([
+            _ordered([_rows_in_order(A[:, lo:hi, clo:chi], yd[..., lo:hi])
+                      for lo, hi in groups])
+            for groups in layout.ota_t_row_slices(s)]))
+    out = torch.cat(tiles, dim=-1)
+    if rademacher:
+        out = out * float(ref.entry_scale(s))
+    return out.float()
+
+
+@pytest.mark.parametrize("rademacher", [True, False])
+@pytest.mark.parametrize("m,n_blocks,s,c,want_cs", [
+    (1, 2, 1024, 4096, 8),   # the unfused decode's adjoint
+    (25, 2, 1024, 4096, 8),  # the main path's 25 devices
+    (3, 3, 777, 1000, 4),    # ragged: CTAs of 194 and 195 rows, groups of
+                             # 97 and 98, a 232-column tile
+])
+def test_ota_t_split_sums_bitwise(m, n_blocks, s, c, want_cs, rademacher):
+    """The adjoint kernel's slicing: row slices per CTA of a cluster, column
+    tiles of 256, partials in rank order; the float32 result equals the
+    unsplit plain version bitwise."""
+    assert layout.ota_t_cluster_size(s) == want_cs
+    y = torch.from_numpy(np.random.RandomState(m + s).randn(m, n_blocks, s)
+                         .astype(np.float32))
+    split = _ota_t_split(y, 12345, c, rademacher)
+    assert torch.equal(split, ref.ota_project_t_ref(y, 12345, c, rademacher))
+
+
+def test_ota_t_grid_fills_the_card_at_the_path_shape():
+    """At 1 vector x 2 blocks x 1024 -> 4096: at least 132 CTAs (one per
+    SM), and 256 with clusters of 8."""
+    x, blocks, groups = layout.ota_t_grid(1, 2, 1024, 4096)
+    assert (x, blocks, groups) == (128, 2, 1)
+    assert x * blocks * groups == 256 >= 132
+    tiles = layout.ota_t_column_tiles(4096)
+    assert len(tiles) == 16 and all(hi - lo == layout.OTA_T_TILE_COLS
+                                    for lo, hi in tiles)
+
+
+@pytest.mark.parametrize("s,c,cs", [(1024, 4096, 8), (777, 1000, 4),
+                                    (256, 1024, 2), (90, 1000, 1),
+                                    (16, 64, 1), (7, 10007, 1),
+                                    (4096, 256, 8)])
+def test_ota_t_cut_covers_in_order(s, c, cs):
+    """Row slices (per CTA, then per row group) and column tiles are
+    contiguous and cover the block once; every CTA of a split cluster keeps
+    at least 128 rows."""
+    slices = layout.ota_t_row_slices(s)
+    assert len(slices) == layout.ota_t_cluster_size(s) == cs
+    assert all(len(g) == layout.OTA_T_ROW_GROUPS for g in slices)
+    rows = [part for groups in slices for part in groups]
+    tiles = layout.ota_t_column_tiles(c)
+    for parts, n in ((rows, s), (tiles, c)):
+        assert parts[0][0] == 0 and parts[-1][1] == n
+        assert all(hi == lo2 for (_, hi), (lo2, _) in zip(parts, parts[1:]))
+    assert cs == 1 or min(g[-1][1] - g[0][0] for g in slices) >= \
+        layout.OTA_T_MIN_ROWS
