@@ -20,7 +20,13 @@ Phases, one JSON line each:
             rtol = atol = 3e-5 (Rademacher and Gaussian entries; the
             adjoint bitwise with Rademacher entries), amp_fused
             at rtol 1e-4 / atol 1e-5, two runs bitwise and an ``id_offset``
-            sub-range bitwise.  Each record times the kernel four ways:
+            sub-range bitwise; amp_fused with a leading point axis, G = 4
+            points of the main shape in one launch, bitwise with its plain
+            version and with four G = 1 launches, beside the clusters the
+            card holds at once (``cudaOccupancyMaxActiveClusters``); and
+            the (G, M) rows a sweep's grid hands ef_sparsify and
+            ota_project, bitwise with G calls of M rows.  Each record times
+            the kernel four ways:
             ``kernel_ms`` per call (median of single calls between CUDA
             events, Python wrapper included); ``graph_device_ms``, the
             kernel's own device time (50 calls captured in one CUDA graph,
@@ -56,12 +62,22 @@ Phases, one JSON line each:
             ``run_federated`` run, a checkpointed run stopped at round 10
             and resumed equals the uninterrupted one bitwise, no host sync
             inside the loop, and its ms per round;
-7. kernels  the per-kernel record: route, source, the TPU kernel it
+7. sweep    the port's ``run_sweep`` at the slice's scale and config over
+            the paper's five schemes x P-bar in {50, 200, 500, 1000}, 20
+            rounds: five static groups of G = 4 points, each one batched
+            round per step (``CompiledExperiment.run_grid``).  Every record
+            equals that point's own ``run_compiled`` (accuracies and losses
+            bitwise, all five schemes); the
+            a_dsgd group launches ef_sparsify, ota_project and amp_fused
+            once per round for all four points, the other groups none.  Per
+            scheme: ms per batched round and the same point's ms per round
+            alone (CUDA events, steady state), launches, final accuracies;
+8. kernels  the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
-Each path (slice, unfused_decode, engine) runs with every launch count set
-to 0 just before it and read just after.
+Each path (slice, unfused_decode, engine, sweep) runs with every launch
+count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -125,7 +141,12 @@ KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
                "ota_project_t": "unfused_decode", "amp_fused": "slice"}
 PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
-                "engine": ("ef_sparsify", "ota_project", "amp_fused")}
+                "engine": ("ef_sparsify", "ota_project", "amp_fused"),
+                "sweep": ("ef_sparsify", "ota_project", "amp_fused")}
+#: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
+SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
+#: point counts at which the point-axis amp_fused is also timed
+POINT_SCALING = (1, 2, 3, 4, 6, 8)
 
 
 class CheckFailed(RuntimeError):
@@ -164,6 +185,26 @@ def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def alternating_ms(fn_a, fn_b, reps: int = 4):
+    """Medians of CUDA-event timings of ``fn_a()`` and ``fn_b()``, timed in
+    turns (a, b, b, a, ...) after one warm-up call each, so that a drift of
+    the host's speed during the measurement falls on both alike."""
+    import torch
+    fn_a()
+    fn_b()
+    times = ([], [])
+    for r in range(reps):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fn_a, fn_b)[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def device_ms(fn, warmup: int = WARMUP, n: int = DEVICE_REPS) -> float:
@@ -460,6 +501,89 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
         bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
 
 
+def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
+                           iters: int, device, gen):
+    """amp_fused with a leading point axis: G points' decodes in one
+    launch, bitwise with the plain version (which decodes the points one
+    after the other) and with G launches of one point each."""
+    import torch
+    from repro_torch.core.amp import amp_blocked_core
+    from repro_torch.kernels import amp_fused, ref
+    seed = 777
+    x = torch.stack([block_sparse(n_blocks, c, s // 8, gen, device)
+                     for _ in range(points)])
+    yb = (ref.ota_project_ref(x, seed, s)
+          + 0.01 * torch.randn(points, n_blocks, s, generator=gen,
+                               device=device)).contiguous()
+    kw = dict(iters=iters)
+    out = amp_fused.amp_decode_fused(yb, seed, c, **kw)
+    want = amp_blocked_core(yb, seed, c, use_kernel=False, **kw)
+    singles = torch.stack([amp_fused.amp_decode_fused(yb[g], seed, c, **kw)
+                           for g in range(points)])
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (points, n_blocks, c),
+          f"amp_fused points: shape {tuple(out.shape)}")
+    # graph time against the number of points, one launch each: where the
+    # clusters stop fitting the card at once
+    scaling = {}
+    for g in POINT_SCALING:
+        yg = yb[:1].expand(g, n_blocks, s).contiguous()
+        scaling[g] = graph_ms(lambda: amp_fused.amp_decode_fused(
+            yg, seed, c, **kw), n=DECODE_GRAPH_CALLS)
+    check(torch.equal(out, singles), f"amp_fused: {points} points in one "
+          "launch are not bitwise the G = 1 launches")
+    check(torch.equal(out, want), f"amp_fused {points} points: not bitwise "
+          "equal to its plain version: " + mismatch(out, want, 0, 0))
+    # A is the same matrix for every point: the function hashes it once a
+    # block, and runs the iterations' products once a point
+    entries = n_blocks * s * c
+    n_ops = (2 * iters + 1) * 2 * points * entries + HASH_OPS * entries
+    return dict(
+        kernel="amp_fused", shape=[points, n_blocks, s, c], iters=iters,
+        entries="rademacher", tol="bitwise (plain and G = 1 launches)",
+        max_abs_err=errors(out, want)[0], bitwise=True,
+        max_active_clusters=amp_fused.max_active_clusters(s, c),
+        clusters_launched=points * n_blocks, graph_ms_by_points=scaling,
+        g1_launches_graph_ms=graph_ms(lambda: [amp_fused.amp_decode_fused(
+            yb[g], seed, c, **kw) for g in range(points)],
+            n=DECODE_GRAPH_CALLS),
+        **timings(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw),
+                  lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
+                                           **kw)),
+        bound=bound(4 * (points * n_blocks * (s + c)), n_ops))
+
+
+def check_point_rows(points: int, m: int, d: int, n_blocks: int, c: int,
+                     s: int, k: int, device, gen):
+    """The (G, M) rows a sweep's grid hands ef_sparsify and ota_project go
+    through the wrappers as G * M rows: each point's rows must be bitwise
+    what a call with that point's M rows alone gives."""
+    import torch
+    from repro_torch.core.compression import sampled_topk_threshold
+    from repro_torch.kernels import ef_sparsify, ota_project
+    g = torch.randn(points, m, d, generator=gen, device=device)
+    delta = 0.3 * torch.randn(points, m, d, generator=gen, device=device)
+    tau = sampled_topk_threshold(g + delta, k)
+    sp, nd = ef_sparsify.ef_sparsify(g, delta, tau)
+    x = torch.randn(points, m, n_blocks, c, generator=gen, device=device)
+    y = ota_project.ota_project(x, 12345, s)
+    torch.cuda.synchronize()
+    for p in range(points):
+        sp1, nd1 = ef_sparsify.ef_sparsify(g[p], delta[p], tau[p])
+        y1 = ota_project.ota_project(x[p], 12345, s)
+        torch.cuda.synchronize()
+        check(torch.equal(sp[p], sp1) and torch.equal(nd[p], nd1),
+              f"ef_sparsify: point {p} of ({points}, {m}, {d}) differs from "
+              f"its ({m}, {d}) call")
+        check(torch.equal(y[p], y1),
+              f"ota_project: point {p} of ({points}, {m}, {n_blocks}, {c}) "
+              f"differs from its ({m}, {n_blocks}, {c}) call")
+    return dict(check="point_rows", points=points,
+                ef_sparsify_shape=[points, m, d],
+                ota_project_shape=[points, m, n_blocks, c, s],
+                bitwise_per_point=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the port's main path
 # ---------------------------------------------------------------------------
@@ -724,6 +848,91 @@ def run_engine(data, cfg, slice_line, device, steps: int = STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the sweep grid, five static groups of G = 4 batched points
+# ---------------------------------------------------------------------------
+
+
+def run_sweep_phase(data, cfg, device, steps: int = STEPS,
+                    eval_every: int = 5):
+    import torch
+    from repro_torch.core.schemes import PAPER_SCHEMES
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.kernels import ops
+
+    x_dev, y_dev, xte, yte = data
+    axes = {"scheme": list(PAPER_SCHEMES), "p_avg": list(SWEEP_P_AVG)}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = sweep.run_sweep((x_dev, y_dev), (xte, yte), cfg, axes, steps=steps,
+                          lr=1e-3, eval_every=eval_every, device=device)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(len(res.records) == len(PAPER_SCHEMES) * len(SWEEP_P_AVG),
+          f"sweep: {len(res.records)} records")
+    for name in PATH_KERNELS["sweep"]:
+        check(launches[name] == steps,
+              f"sweep: {name} launched {launches[name]} times in run_sweep, "
+              f"expected {steps} (the a_dsgd group, once per round)")
+
+    # every record bitwise against that point's own run_compiled
+    for rec in res.records:
+        one = engine.run_compiled(
+            x_dev, y_dev, xte, yte,
+            dataclasses.replace(cfg, scheme=rec["scheme"],
+                                p_avg=rec["p_avg"]),
+            steps=steps, lr=1e-3, eval_every=eval_every, device=device)
+        check(rec["accs"] == one.accs and rec["losses"] == one.losses,
+              f"sweep: {rec['scheme']} p_avg={rec['p_avg']}: record "
+              f"{rec['accs']} {rec['losses']} is not its own run_compiled "
+              f"{one.accs} {one.losses}")
+
+    # per group: launches of the batched run alone, then steady-state ms
+    # per batched round against the first point's own run (its own runner,
+    # with its own q_max)
+    groups = []
+    grid = [{"p_avg": p} for p in SWEEP_P_AVG]
+    for scheme in PAPER_SCHEMES:
+        exp = engine.Experiment(cfg=dataclasses.replace(cfg, scheme=scheme),
+                                steps=steps, eval_every=eval_every)
+        ce = engine.CompiledExperiment(x_dev, y_dev, xte, yte, exp,
+                                       device=device)
+        ov, keys, _ = sweep.grid_inputs(ce, grid, steps)
+        ops.reset_launches()
+        ce.run_grid(ov, keys)
+        torch.cuda.synchronize()
+        group_launches = ops.launch_counts()
+        want = steps if scheme == "a_dsgd" else 0
+        for name in PATH_KERNELS["sweep"]:
+            check(group_launches[name] == want,
+                  f"sweep: group {scheme}: {name} launched "
+                  f"{group_launches[name]} times, expected {want}")
+        lone = engine.CompiledExperiment(
+            x_dev, y_dev, xte, yte, dataclasses.replace(
+                exp, cfg=dataclasses.replace(exp.cfg, **grid[0])),
+            device=device)
+        lone_keys = engine.round_keys(steps, 0, device)
+        alone, batched = alternating_ms(lambda: lone.run({}, lone_keys),
+                                        lambda: ce.run_grid(ov, keys))
+        groups.append(dict(
+            scheme=scheme, points=len(grid), launches=group_launches,
+            ms_per_batched_round=batched / steps,
+            ms_per_round_one_point=alone / steps,
+            batched_over_points_alone=batched / (len(grid) * alone),
+            final_accs={str(r["p_avg"]): r["final_acc"] for r in
+                        res.records if r["scheme"] == scheme},
+            vs_run_compiled="bitwise"))
+    return dict(
+        phase="sweep", steps=steps, axes=axes, m=int(x_dev.shape[0]),
+        b=int(x_dev.shape[1]), d=7850, config=dict(
+            projection=cfg.projection, block_size=cfg.block_size,
+            s_frac=cfg.s_frac, k_frac=cfg.k_frac, use_kernel=cfg.use_kernel,
+            amp_iters=cfg.amp_iters),
+        launches=launches, sweep_s=sweep_s,
+        us_per_call=res.records[0]["us_per_call"], groups=groups)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -786,10 +995,15 @@ def main() -> int:
                         rademacher=False),
         check_amp_fused(64, 1024, 256, 10, device, gen),
     ]
-    for rec in [*main_checks.values(), *extra]:
+    # a sweep's grid: G = 4 points of the main path's shapes
+    points = check_amp_fused_points(4, n_blocks, c, s, cfg.amp_iters, device,
+                                    gen)
+    point_rows = check_point_rows(4, 25, d, n_blocks, c, s, k, device, gen)
+    for rec in [*main_checks.values(), *extra, points]:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
-              other_shapes=extra, not_ported=[]))
+              other_shapes=extra, point_axis=[points, point_rows],
+              not_ported=[]))
 
     data, sl = run_slice(device)
     emit(sl)
@@ -797,9 +1011,11 @@ def main() -> int:
     emit(ud)
     eng = run_engine(data, cfg, sl, device)
     emit(eng)
+    sw = run_sweep_phase(data, cfg, device)
+    emit(sw)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
-             "engine": eng["launches"]}
+             "engine": eng["launches"], "sweep": sw["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -818,6 +1034,13 @@ def main() -> int:
             max_rel_err=chk["max_rel_err"], kernel_ms=chk["kernel_ms"],
             ported=True, path=KERNEL_PATH[name],
             launches_per_path={p: n[name] for p, n in paths.items()}))
+        if name == "amp_fused":
+            kernels[-1]["point_axis"] = {
+                k: points[k] for k in (
+                    "shape", "kernel_ms", "graph_device_ms", "device_ms",
+                    "host_us", "plain_ms", "bound", "bound_share",
+                    "g1_launches_graph_ms", "max_active_clusters",
+                    "clusters_launched", "graph_ms_by_points")}
     check(len(kernels) == 4 and all(k["ported"] for k in kernels),
           "kernels: not all four TPU kernels are ported")
     emit({"kernels": kernels})

@@ -15,6 +15,7 @@ so :func:`ravel` and :func:`unravel` are the port's only flatteners.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -57,15 +58,21 @@ def ravel(params: Dict[str, torch.Tensor], batch_dims: int = 0) -> torch.Tensor:
     return torch.cat([v.reshape(*lead, -1) for v in leaves], dim=batch_dims)
 
 
-def unravel(flat: torch.Tensor,
-            template: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`ravel` for a dict shaped like ``template``."""
+def unravel(flat: torch.Tensor, template: Dict[str, torch.Tensor],
+            batch_dims: int = 0) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`ravel` for a dict shaped like ``template``.
+
+    With ``batch_dims=1`` ``flat`` and every leaf of ``template`` carry a
+    leading axis that is kept: ``(G, 7850)`` -> ``{"b": (G, 10), "w": (G,
+    784, 10)}``.
+    """
     out, off = {}, 0
     for k in sorted(template):
-        n = template[k].numel()
-        out[k] = flat[off:off + n].reshape(template[k].shape)
+        shape = template[k].shape
+        n = math.prod(shape[batch_dims:])
+        out[k] = flat[..., off:off + n].reshape(shape)
         off += n
-    if off != flat.shape[0]:
-        raise ValueError(f"flat vector has {flat.shape[0]} entries, the "
+    if off != flat.shape[-1]:
+        raise ValueError(f"flat vector has {flat.shape[-1]} entries, the "
                          f"template {off}")
     return out

@@ -12,13 +12,18 @@ round differently: the fused kernel (``use_kernel``), the chunked loop that
 makes each chunk's A once (:func:`amp_blocked_core`), and launch-per-op
 decoding through the projector (:func:`amp_decode_blocked`).
 :func:`amp_decode` picks among them exactly as the reference does.
+
+A sweep's grid decodes G points at once: :func:`amp_decode` and
+:func:`amp_blocked_core` take a leading point axis.  The fused kernel
+decodes all G points in one launch; every other route decodes each point
+as a lone point does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.device import div_f32
+from repro_torch.device import div_f32, per_point
 from repro_torch.kernels import ops, ref
 
 
@@ -118,15 +123,18 @@ def amp_blocked_core(yb: torch.Tensor, seed, c: int, iters: int = 20,
                      id_offset=0, use_kernel: bool = False) -> torch.Tensor:
     """Chunked per-block AMP with ONE A-generation per block per decode.
 
-    yb: (n_blocks, s_block) -> xb: (n_blocks, c).  ``seed`` and
-    ``id_offset`` (global index of the first block) are ints or int64-held
-    uint32 tensors.
+    yb: (n_blocks, s_block) -> xb: (n_blocks, c), or (G, n_blocks,
+    s_block) -> (G, n_blocks, c) for G points; block ``b`` of every point
+    has the global id ``id_offset + b``.  ``seed`` and ``id_offset``
+    (global index of the first block) are ints or int64-held uint32
+    tensors.
 
     ``use_kernel=False``: a loop over chunks of ``chunk_blocks`` blocks;
     each chunk's A is generated once and all AMP iterations for its blocks
     run against it.  This is the plain version of the fused kernel.
     ``use_kernel=True``: the fused single-launch kernel
     (kernels/amp_fused.py) on a CUDA tensor, this plain version on a CPU one.
+    The plain version decodes G points one after the other.
     """
     if use_kernel:
         return ops.amp_decode_fused(yb, seed=seed, c=c, iters=iters,
@@ -134,6 +142,10 @@ def amp_blocked_core(yb: torch.Tensor, seed, c: int, iters: int = 20,
                                     debias=debias, rademacher=rademacher,
                                     nb_tile=chunk_blocks,
                                     id_offset=id_offset)
+    if yb.dim() == 3:
+        return per_point(lambda y: amp_blocked_core(
+            y, seed, c, iters, chunk_blocks, threshold_mult, debias,
+            rademacher, id_offset), yb, rank=2)
     n_blocks, s_block = yb.shape
     sqrt_s = _sqrt_f32(s_block)
     offset = ref.as_u32(id_offset, yb.device)
@@ -173,20 +185,29 @@ def amp_decode_blocked_scan(yb: torch.Tensor, projector, iters: int = 20,
 
 def amp_decode(y_flat: torch.Tensor, projector, iters: int = 20,
                threshold_mult: float = 1.3) -> torch.Tensor:
-    """Dispatch on projector type; y_flat has projector.out_dim entries."""
+    """Dispatch on projector type; y_flat has projector.out_dim entries,
+    (out_dim,) -> (d,) or, for G points, (G, out_dim) -> (G, d)."""
     from repro_torch.core.projection import BlockedProjector, DenseProjector
     if isinstance(projector, DenseProjector):
-        return amp_decode_dense(y_flat, projector.matrix(y_flat.device),
-                                iters, threshold_mult)
+        mat = projector.matrix(y_flat.device)
+        return per_point(lambda y: amp_decode_dense(y, mat, iters,
+                                                    threshold_mult),
+                         y_flat, rank=1)
     if not isinstance(projector, BlockedProjector):
         raise TypeError(f"unknown projector {type(projector).__name__}")
-    yb = y_flat.reshape(projector.n_blocks, projector.s_block)
     if projector.use_kernel:
+        yb = y_flat.reshape(*y_flat.shape[:-1], projector.n_blocks,
+                            projector.s_block)
         xb = amp_blocked_core(yb, projector.seed, projector.block_size,
                               iters, projector.chunk_blocks, threshold_mult,
                               rademacher=projector.rademacher,
                               use_kernel=True)
         return projector.from_blocks(xb)
+    if y_flat.dim() == 2:
+        return per_point(lambda y: amp_decode(y, projector, iters,
+                                              threshold_mult),
+                         y_flat, rank=1)
+    yb = y_flat.reshape(projector.n_blocks, projector.s_block)
     if projector.n_blocks > projector.chunk_blocks:
         return amp_decode_blocked_scan(yb, projector, iters, threshold_mult)
     return amp_decode_blocked(yb, projector, iters, threshold_mult)

@@ -15,7 +15,11 @@ PS-side normalisation (eq. 25 / eq. 18):
 
 The reference vmaps its per-device functions; here a leading device axis is
 written out, so ``make_frame`` takes ``(..., s_tilde)`` projections and
-``(...)`` power budgets.  The fading helpers are not ported yet.
+``(...)`` power budgets.  A sweep's grid adds a leading point axis G in
+front of the devices: ``mac_sum`` and ``frame_power`` then take
+``(G, M, s)`` frames (``mac_sum`` one key per point, ``(G, 2)``), and
+``ps_normalize`` ``(G, s_tilde + 2)``.  The
+fading helpers are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.device import per_point, row_sum
 
 
 def make_frame(g_tilde: torch.Tensor, p_t,
@@ -32,8 +37,15 @@ def make_frame(g_tilde: torch.Tensor, p_t,
     """Build the channel frames of ``(..., s_tilde)`` projections.
 
     Returns ``(frame (..., s_tilde + 2), alpha (...))``; ``use_mean_removal``
-    is a bool or 0/1 scalar.
+    is a bool or 0/1 scalar.  ``(G, M, s_tilde)`` projections of G points
+    build point by point: their row sums would round a point unlike its own
+    call if batched (see :func:`device.row_sum`).
     """
+    if g_tilde.dim() == 3:
+        p_t = torch.as_tensor(p_t, dtype=g_tilde.dtype,
+                              device=g_tilde.device).expand(g_tilde.shape[:-1])
+        return per_point(lambda g, p: make_frame(g, p, use_mean_removal),
+                         g_tilde, p_t, rank=2)
     s_tilde = g_tilde.shape[-1]
     use = float(use_mean_removal)
     mu = use * g_tilde.mean(dim=-1, keepdim=True)
@@ -47,8 +59,9 @@ def make_frame(g_tilde: torch.Tensor, p_t,
 
 
 def frame_power(frame: torch.Tensor) -> torch.Tensor:
-    """||x_m||^2 per frame -- tests assert == P_t (paper eq. 12/21)."""
-    return (frame * frame).sum(dim=-1)
+    """||x_m||^2 per frame -- tests assert == P_t (paper eq. 12/21);
+    ``(G, M, s)`` frames sum point by point (:func:`device.row_sum`)."""
+    return row_sum(frame * frame)
 
 
 def awgn(key: torch.Tensor, shape, sigma2: float) -> torch.Tensor:
@@ -57,9 +70,14 @@ def awgn(key: torch.Tensor, shape, sigma2: float) -> torch.Tensor:
 
 def mac_sum(frames: torch.Tensor, key: torch.Tensor,
             sigma2: float) -> torch.Tensor:
-    """Simulation path: y = sum_m x_m + z  over a leading device axis."""
-    y = frames.sum(dim=0)
-    return y + awgn(key, y.shape, sigma2)
+    """Simulation path: y = sum_m x_m + z over the device axis.
+
+    ``frames`` (M, s) with one key (2,), or (G, M, s) with a key per point
+    (G, 2): each point sums its own devices and draws its AWGN from its own
+    key.
+    """
+    y = frames.sum(dim=-2)
+    return y + awgn(key, y.shape[key.dim() - 1:], sigma2)
 
 
 #: a received scale slot below this is indistinguishable from the unit-
@@ -74,7 +92,7 @@ def ps_normalize(y: torch.Tensor, use_mean_removal) -> torch.Tensor:
     The clean scale slot is ``sum_m sqrt(alpha_m) > 0`` by construction;
     noise-dominated readings (<= SCALE_SLOT_FLOOR) fall back to scale 1.0.
     """
-    body, mu_slot, scale_slot = y[:-2], y[-2], y[-1]
+    body, mu_slot, scale_slot = y[..., :-2], y[..., -2:-1], y[..., -1:]
     use = float(use_mean_removal)
     scale = torch.where(scale_slot > SCALE_SLOT_FLOOR, scale_slot, 1.0)
     return (body + use * mu_slot) / scale

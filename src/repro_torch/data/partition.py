@@ -1,6 +1,6 @@
 """Data partitioning: how M edge devices see the training set (port copy).
 
-The port's own numpy copy of the two partitioners of the reference's
+The port's own numpy copy of the three partitioners of the reference's
 ``repro/data/partition.py`` that the paper's protocols use, behind the same
 entry point :func:`make_partition`:
 
@@ -12,8 +12,12 @@ entry point :func:`make_partition`:
     ``shards_per_device`` single-class shards each, dealt so that every
     device's classes are distinct.
 
-Both are deterministic given ``seed`` and draw exactly what the reference
-draws, so the two packages split the same data the same way.
+``dirichlet``
+    Each device's class proportions ~ Dirichlet(beta): the biased split
+    behind the paper's claim that A-DSGD is the more robust to bias.
+
+All three are deterministic given ``seed`` and draw exactly what the
+reference draws, so the two packages split the same data the same way.
 """
 from __future__ import annotations
 
@@ -107,6 +111,42 @@ def partition_label_shards(y: np.ndarray, m: int, b: int,
 
 
 # ---------------------------------------------------------------------------
+# Dirichlet(beta)
+# ---------------------------------------------------------------------------
+
+
+def partition_dirichlet(y: np.ndarray, m: int, b: int, beta: float,
+                        n_classes: int = 0, seed: int = 0) -> np.ndarray:
+    """(m, b) indices: device class proportions ~ Dirichlet(beta).
+
+    Samples are drawn from each class pool with replacement only when a
+    pool is exhausted (heavy skew at small beta can demand more samples of
+    one class than exist).
+    """
+    if beta <= 0:
+        raise ValueError(f"beta must be > 0, got {beta}")
+    n_classes = n_classes or int(y.max()) + 1
+    rng = _rng(seed)
+    by_class = [np.flatnonzero(y == c) for c in range(n_classes)]
+    props = rng.dirichlet(np.full(n_classes, beta), size=m)
+    idx = np.empty((m, b), np.int64)
+    for dev in range(m):
+        classes = rng.choice(n_classes, b, p=props[dev])
+        counts = np.bincount(classes, minlength=n_classes)
+        off = 0
+        for c in range(n_classes):
+            n_take = int(counts[c])
+            if not n_take:
+                continue
+            pool = by_class[c]
+            idx[dev, off:off + n_take] = rng.choice(
+                pool, n_take, replace=n_take > len(pool))
+            off += n_take
+        rng.shuffle(idx[dev])
+    return idx
+
+
+# ---------------------------------------------------------------------------
 # unified entry point
 # ---------------------------------------------------------------------------
 
@@ -122,7 +162,7 @@ def make_partition(x: np.ndarray, y: np.ndarray, m: int, b: int,
         idx = partition_label_shards(y, m, b, shards_per_device, n_classes,
                                      seed)
     elif kind == "dirichlet":
-        raise NotImplementedError("partition kind 'dirichlet' is not ported yet")
+        idx = partition_dirichlet(y, m, b, beta, n_classes, seed)
     else:
         raise ValueError(
             f"unknown partition kind {kind!r}; known: {PARTITION_KINDS}")

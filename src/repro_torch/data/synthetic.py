@@ -44,7 +44,7 @@ def federated_split(x: np.ndarray, y: np.ndarray, m: int, b: int,
     Thin front-end over :mod:`repro_torch.data.partition`.  ``iid`` keeps the
     paper's two protocols (uniform / two classes per device); ``kind``
     overrides it with any registered partitioner (``iid`` |
-    ``label_shards``; ``dirichlet`` is not ported yet).  Returns (x_dev (M, B, d), y_dev (M, B)).
+    ``label_shards`` | ``dirichlet``).  Returns (x_dev (M, B, d), y_dev (M, B)).
     """
     from repro_torch.data.partition import make_partition
     if not kind:

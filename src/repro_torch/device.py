@@ -40,3 +40,48 @@ def div_f32(t: torch.Tensor, n) -> torch.Tensor:
     if isinstance(n, torch.Tensor):
         return t / n
     return t / torch.full((), n, dtype=torch.float32, device=t.device)
+
+
+def per_point(fn, *xs: torch.Tensor, rank: int):
+    """``fn(*xs)`` once for each point of a leading point axis, stacked.
+
+    ``xs`` carry ``rank`` dimensions per point; with exactly ``rank`` there
+    is no point axis and ``fn`` runs once.  With one more, ``fn`` runs on
+    a fresh copy of each point's slices and its results (a tensor or a
+    tuple of tensors) are stacked along a new leading axis.  A sweep's grid
+    runs its points as one batched round, and each point must round as its
+    own run does.
+
+    On the card two kinds of op change a point's bits when G points run as
+    one batch (``tests/test_torch_cuda.py``, ``test_point_axis_*``): a
+    product whose shape grows with G (cuBLAS picks another algorithm: the
+    model's logits, the dense projection, the plain AMP decodes), and a
+    sum along the rows of a ``(G * M, n)`` batch, which torch configures by
+    its number of rows (``make_frame``'s and ``frame_power``'s, SBC's
+    means, QSGD's norm: :func:`row_sum`).  Those run per point through
+    here.  Sums across the device axis, the metrics' means over M entries
+    and elementwise ops keep each point's bits and run batched.
+
+    The copies matter too: a row sum's order depends on where its rows
+    start (torch loads them in 16-byte vectors from the first aligned
+    entry), a point's slice of a batch can start 8 bytes off, and the
+    tensors of a point's own run start aligned.
+    """
+    lead = xs[0].dim() - rank
+    if lead == 0:
+        return fn(*xs)
+    if lead != 1:
+        raise ValueError(f"per_point: expected {rank} or {rank + 1} "
+                         f"dimensions, got {tuple(xs[0].shape)}")
+    outs = [fn(*(x[g].clone() for x in xs)) for g in range(xs[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-1)``; a ``(G, M, n)`` batch of G points sums each point's
+    ``(M, n)`` rows on their own, in the order a lone point's call does."""
+    if x.dim() == 3:
+        return per_point(row_sum, x, rank=2)
+    return x.sum(dim=-1)

@@ -19,11 +19,23 @@ participation mask, and :func:`run_checkpointed` splits a run into segments
 with an npz snapshot (``train/checkpoint.py``, the reference's layout) after
 each, so that an interrupted run resumes bitwise.
 
-Ported: the AWGN MAC with the ``ideal`` and ``a_dsgd`` schemes (dense and
-blocked projection) and the identity local work.  Guardrails, schedule
-overrides (the sweeps), the ``mac`` / ``fault`` / ``sched`` hooks of
-:func:`round_masked` and any local work but one plain SGD step raise
-``NotImplementedError``; none of them quietly takes another path.
+:meth:`CompiledExperiment.run_grid` is the port's counterpart of the
+reference's ``jax.jit(jax.vmap(ce.run))``: G grid points, each with its own
+schedules, round keys and device mask, run as one batched round per step.
+The carry gains a leading point axis (params, Adam moments, ``(G, M, d)``
+error states and momenta); the RNG draws, the sparsifier, the projection
+and the fused AMP decode run once for all points, and what is shared by
+construction stays shared: the round index, the mean-removal switch and
+the digital schemes' static ``q_max``.  ``torch.func.vmap`` cannot trace
+the kernels' ``ctypes`` launches, so the batch is written out.  Each point
+equals its own run (:mod:`repro_torch.experiments.sweep` builds the grids).
+
+Ported: the AWGN MAC with the ``ideal``, ``a_dsgd`` and digital schemes,
+the schedule overrides ``p_sched`` and ``q_sched``, and the identity local
+work.  Guardrails, the channel, robustness and local-compute overrides,
+the ``mac`` / ``fault`` / ``sched`` hooks of :func:`round_masked` and any
+local work but one plain SGD step raise ``NotImplementedError``; none of
+them quietly takes another path.
 """
 from __future__ import annotations
 
@@ -54,6 +66,19 @@ from repro_torch.train.paper_repro import (
 #: matching run_federated exactly (seed k shifts the stream by k * steps so
 #: seed replicas draw disjoint keys)
 KEY_STREAM_BASE = 1000
+
+#: the overrides a run accepts: the per-point schedules of the sweeps
+OVERRIDE_ATTRS = ("p_sched", "q_sched")
+#: the reference's other overrides, one traced scalar each, which need axes
+#: not ported yet: the channel-model scalars (fading, CSI error, geometry,
+#: scheduling), the fault and robustness rates, the local-compute knobs
+CHANNEL_OVERRIDE_ATTRS = ("csi_err_var", "fading_threshold", "fading_rho",
+                          "cell_radius", "path_loss_exp", "n_subbands")
+ROBUST_OVERRIDE_ATTRS = ("byzantine_frac", "fault_rate", "erasure_prob",
+                         "byz_scale", "trim_frac", "norm_cap", "power_cap")
+LOCAL_OVERRIDE_ATTRS = ("local_epochs", "prox_mu", "dyn_alpha")
+UNPORTED_OVERRIDE_ATTRS = (CHANNEL_OVERRIDE_ATTRS + ROBUST_OVERRIDE_ATTRS
+                           + LOCAL_OVERRIDE_ATTRS)
 
 
 def round_keys(steps: int, seed: int = 0, device=None) -> torch.Tensor:
@@ -119,6 +144,10 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     the channel draw, as in the reference; its ``mac``, ``fault`` and
     ``sched`` hooks, robust aggregation and the transmit power cap are not
     ported yet and raise.
+
+    G points at once: grads/deltas (G, M_pad, d), one key per point (G, 2)
+    and one mask per point (G, M_pad); each point decodes against its own
+    ``m_eff``.
     """
     for name, hook in (("mac", mac), ("fault", fault), ("sched", sched)):
         if hook is not None:
@@ -129,10 +158,10 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
         raise NotImplementedError(
             "round_masked: robust aggregation and clip_power are not ported "
             "yet")
-    m_pad = grads.shape[0]
+    m_pad = grads.shape[-2]
     mask_b = mask > 0
     # the max guard only engages when every device is masked out
-    m_eff = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+    m_eff = torch.clamp(mask.to(torch.float32).sum(-1), min=1.0)
     ctx = dataclasses.replace(ctx, m=m_eff)
     if dev_keys is None:
         dev_keys = rng.split(rng.fold_in(key, 1), m_pad)
@@ -151,13 +180,14 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
                             round_sigma2(scheme, draw))
     else:
         active = active & mask_b
-        y = (frames * mask_b[:, None]).sum(dim=0)
+        y = (frames * mask_b[..., None]).sum(dim=-2)
     # padded devices do not exist: their error state must not evolve
-    new_deltas = torch.where(mask_b[:, None], new_deltas, deltas)
+    new_deltas = torch.where(mask_b[..., None], new_deltas, deltas)
     ghat = scheme.decode(y, step, ctx)
     w = mask.to(torch.float32)
-    metrics = {k: (v * w).sum() / m_eff for k, v in metrics.items()}
-    metrics["active_frac"] = active.to(torch.float32).sum() / m_eff
+    metrics = {k: (v * w).sum(dim=-1) / m_eff for k, v in metrics.items()}
+    metrics["active_frac"] = (active.to(torch.float32).expand(w.shape)
+                              .sum(dim=-1) / m_eff)
     return ghat, new_deltas, metrics
 
 
@@ -187,8 +217,11 @@ class CompiledExperiment:
 
     :meth:`run_segment` is the segment contract the checkpoint driver
     needs: rounds ``t0 .. t0 + len(keys)`` from an explicit carry
-    ``(params, opt_state, deltas, momenta)``.  ``overrides`` (the
-    reference's per-grid-point schedules of the sweeps) must be empty.
+    ``(params, opt_state, deltas, momenta)``.  ``overrides`` swaps
+    schedules onto the scheme (``p_sched`` (T,), ``q_sched`` (T,)) through
+    :meth:`Scheme.with_overrides`.  :meth:`run_grid` runs G points, each
+    with its own ``(T,)`` schedules, keys and mask, as one batched round
+    per step.
     """
 
     def __init__(self, x_dev: np.ndarray, y_dev: np.ndarray,
@@ -228,19 +261,37 @@ class CompiledExperiment:
     #: the reference's name for :meth:`carry0`
     _carry0 = carry0
 
-    def _round(self, carry, t: int, key: torch.Tensor, mask):
+    def _scheme_for(self, overrides: Dict[str, Any]) -> Scheme:
+        """The scheme with the run's schedule overrides swapped on."""
+        for name in overrides:
+            if name in UNPORTED_OVERRIDE_ATTRS:
+                raise NotImplementedError(
+                    f"override {name!r} needs an axis that is not ported "
+                    "yet")
+            if name not in OVERRIDE_ATTRS:
+                raise AttributeError(
+                    f"scheme {self.scheme.name!r} has no attribute {name!r} "
+                    "to override")
+        return (self.scheme.with_overrides(**overrides) if overrides
+                else self.scheme)
+
+    def _round(self, sch: Scheme, carry, t: int, key: torch.Tensor, mask):
+        """One round of one point, or of G points when the carry, ``key``
+        (G, 2), ``mask`` (G, M_pad) and the scheme's schedules carry a
+        leading point axis: the same code either way."""
         params, opt_state, deltas, momenta = carry
         grads, momenta = device_grads(
             params, self.xd, self.yd, momenta,
             momentum_correction=self.exp.momentum_correction)
         if mask is None:
-            ghat, deltas, met = round_simulated(self.scheme, grads, deltas,
-                                                t, key, self.ctx)
+            ghat, deltas, met = round_simulated(sch, grads, deltas, t, key,
+                                                self.ctx)
         else:
-            ghat, deltas, met = round_masked(self.scheme, grads, deltas, t,
-                                             key, mask, self.ctx)
-        params, opt_state = self.opt.apply(params, unravel(ghat, params),
-                                           opt_state)
+            ghat, deltas, met = round_masked(sch, grads, deltas, t, key,
+                                             mask, self.ctx)
+        params, opt_state = self.opt.apply(
+            params, unravel(ghat, params, batch_dims=ghat.dim() - 1),
+            opt_state)
         out = {"acc": accuracy(params, self.xt, self.yt),
                "loss": ce_loss(params, self.xt, self.yt),
                "metrics": met}
@@ -255,13 +306,13 @@ class CompiledExperiment:
         function of ``(carry, t, key)``), so splitting a run at any boundary
         and resuming from the saved carry reproduces it bitwise.  Returns
         ``(carry, outs)`` with outs of ``(len(keys),)`` device tensors.
+        ``overrides`` swaps ``(T,)`` schedules onto the scheme, as the
+        reference's ``run_segment`` does.
         """
-        if overrides:
-            raise NotImplementedError(
-                "schedule overrides (the sweeps) are not ported yet")
+        sch = self._scheme_for(overrides)
         outs = []
         for i in range(keys.shape[0]):
-            carry, out = self._round(carry, int(t0) + i, keys[i], mask)
+            carry, out = self._round(sch, carry, int(t0) + i, keys[i], mask)
             outs.append(out)
         return carry, _stack_outs(outs)
 
@@ -280,6 +331,45 @@ class CompiledExperiment:
                    mask: torch.Tensor):
         """Padded-M variant: mask (M_pad,) marks live devices."""
         return self._scan(overrides, keys, mask)
+
+    def carry0_grid(self, points: int):
+        """:meth:`carry0` for G points: every leaf with a leading point
+        axis, except Adam's step count, which all points share."""
+        params = {k: v.expand(points, *v.shape).clone()
+                  for k, v in self.params0.items()}
+        zeros = torch.zeros((points, self.m, self.d), dtype=torch.float32,
+                            device=self.device)
+        return params, self.opt.init(params), zeros, zeros.clone()
+
+    def run_grid(self, overrides: Dict[str, Any], keys: torch.Tensor,
+                 masks: Optional[torch.Tensor] = None):
+        """G runs of this configuration as one batched round per step: the
+        counterpart of the reference's ``jax.jit(jax.vmap(ce.run))``.
+
+        ``overrides`` holds ``(G, T)`` schedules (``p_sched``, and
+        ``q_sched`` for the digital schemes, whose static ``q_max`` the
+        caller sets to cover the grid), ``keys`` is ``(G, T, 2)`` and
+        ``masks`` an optional ``(G, M_pad)``.  Each point equals its own
+        :meth:`run` (or :meth:`run_masked`) with its own schedules, keys
+        and mask.  Returns ``{"acc": (G, T), "loss": (G, T), "metrics":
+        {...: (G, T)}, "params": dict of (G, ...)}``, on the device.
+        """
+        points, steps = keys.shape[:2]
+        for name, v in overrides.items():
+            if v.shape[0] != points:
+                raise ValueError(f"run_grid: override {name!r} has "
+                                 f"{v.shape[0]} points, keys {points}")
+        sch = self._scheme_for(overrides)
+        carry = self.carry0_grid(points)
+        outs = []
+        for t in range(steps):
+            carry, out = self._round(sch, carry, t, keys[:, t], masks)
+            outs.append(out)
+        outs = _stack_outs(outs)
+        grid = {"acc": outs["acc"].T, "loss": outs["loss"].T,
+                "metrics": {k: v.T for k, v in outs["metrics"].items()}}
+        grid["params"] = carry[0]
+        return grid
 
 
 def _restore_carry(ref_carry, loaded):

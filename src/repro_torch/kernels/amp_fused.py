@@ -25,6 +25,13 @@ sums cross CTAs in rank order, with no atomics, so runs are bitwise
 repeatable and a sub-range decoded with ``id_offset`` equals the full
 decode's rows bitwise.  At the main path's two blocks the decode runs on
 32 SMs.
+
+A sweep's grid decodes G points in one launch: ``yb`` of shape (G,
+n_blocks, s_block), the same A for every point, the grid's y dimension the
+point.  Nothing else in the kernel depends on the point, so each point's
+rows are bitwise its own G = 1 decode; G = 4 at the main path's shape puts
+8 clusters of 16 CTAs on the card at once where it holds that many
+(:func:`max_active_clusters`).
 """
 from __future__ import annotations
 
@@ -40,11 +47,13 @@ def amp_decode_fused(yb: torch.Tensor, seed, c: int, *, iters: int = 20,
                      threshold_mult: float = 1.3, debias: bool = True,
                      rademacher: bool = True, id_offset=0,
                      chunk_blocks: int = 8) -> torch.Tensor:
-    """Decode yb: (n_blocks, s_block) -> xb: (n_blocks, c) in one launch.
+    """Decode yb: (n_blocks, s_block) -> xb: (n_blocks, c), or G points
+    (G, n_blocks, s_block) -> (G, n_blocks, c), in one launch.
 
-    ``seed`` and ``id_offset`` (global id of the first block) are ints or
-    int64-held uint32 tensors.  CPU tensors take the plain version, chunked
-    by ``chunk_blocks``; CUDA tensors launch the kernel.
+    ``seed`` and ``id_offset`` (global id of the first block of every
+    point) are ints or int64-held uint32 tensors.  CPU tensors take the
+    plain version, chunked by ``chunk_blocks`` and one point after the
+    other; CUDA tensors launch the kernel.
     """
     if yb.device.type == "cpu":
         from repro_torch.core.amp import amp_blocked_core
@@ -59,10 +68,11 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
             debias: bool, rademacher: bool, id_offset) -> torch.Tensor:
     global launches
     build.require_cuda_f32("amp_decode_fused", yb=yb)
-    if yb.dim() != 2:
-        raise ValueError(f"amp_decode_fused: yb must be (n_blocks, s_block), "
-                         f"got {tuple(yb.shape)}")
-    n_blocks, s_block = yb.shape
+    if yb.dim() not in (2, 3):
+        raise ValueError(f"amp_decode_fused: yb must be (n_blocks, s_block) "
+                         f"or (G, n_blocks, s_block), got {tuple(yb.shape)}")
+    n_blocks, s_block = yb.shape[-2:]
+    points = yb.shape[0] if yb.dim() == 3 else 1
     lib = build.library()
     k = layout.amp_cluster_size(s_block, c)
     g = layout.amp_row_segments(s_block, c)
@@ -71,15 +81,29 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
         raise ValueError(f"amp_decode_fused: a {s_block} x {c} block on "
                          f"{k} CTAs needs {smem} bytes of shared memory per "
                          f"CTA, above 227 KB")
-    xb = torch.empty(n_blocks, c, dtype=torch.float32, device=yb.device)
+    xb = torch.empty(*yb.shape[:-1], c, dtype=torch.float32,
+                     device=yb.device)
     seed_dev = build.device_u32(seed, yb.device)
     offset_dev = build.device_u32(id_offset, yb.device)
     rc = lib.amp_fused_launch(
         yb.data_ptr(), seed_dev.data_ptr(), offset_dev.data_ptr(),
-        xb.data_ptr(), n_blocks, s_block, c, k, g, int(iters),
+        xb.data_ptr(), n_blocks, points, s_block, c, k, g, int(iters),
         float(threshold_mult),
         int(debias), int(rademacher), ref.entry_scale(s_block),
         build.current_stream(yb.device))
     build.check(rc, "amp_decode_fused")
     launches += 1
     return xb
+
+
+def max_active_clusters(s_block: int, c: int, rademacher: bool = True) -> int:
+    """How many clusters decoding ``s_block x c`` blocks the card holds at
+    once, as ``cudaOccupancyMaxActiveClusters`` reports it for this
+    kernel's cluster size and shared memory."""
+    k = layout.amp_cluster_size(s_block, c)
+    g = layout.amp_row_segments(s_block, c)
+    n = build.library().amp_fused_max_active_clusters(s_block, c, k, g,
+                                                      int(rademacher))
+    if n < 0:
+        build.check(-n, "amp_fused_max_active_clusters")
+    return n

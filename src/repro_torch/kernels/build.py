@@ -41,9 +41,10 @@ SIGNATURES = {
                                 _P]),
     "ota_project_t_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                   _P]),
-    "amp_fused_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                              _I, _F, _P]),
+    "amp_fused_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _F, _P]),
     "amp_fused_smem_bytes": (_I64, [_I, _I, _I, _I, _I]),
+    "amp_fused_max_active_clusters": (_I, [_I, _I, _I, _I, _I]),
 }
 
 

@@ -1,5 +1,7 @@
 // Fused AMP decode: one launch runs every iteration and the debias for all
-// blocks of the block-diagonal A.  Per block b (global id id_offset + b):
+// blocks of the block-diagonal A, for G points at once (a sweep's grid: the
+// same A, one y per point).  Per point p and block b (global id
+// id_offset + b, whatever the point):
 //
 //   x = 0, z = y
 //   repeat iters times:
@@ -16,9 +18,12 @@
 // block, are the work.  The Pallas kernel makes a chunk's A once and keeps it
 // in VMEM; a whole A_b (16 MiB at 1024 x 4096) does not fit one SM.
 //
-// Design: one block per thread-block cluster of K CTAs on neighbouring SMs
-// (K = 16 at 1024 x 4096; K is a function of (s, c) only, chosen by
-// kernels/layout.py::amp_cluster_size).  CTA k of a cluster owns
+// Design: one block of one point per thread-block cluster of K CTAs on
+// neighbouring SMs (K = 16 at 1024 x 4096; K is a function of (s, c) only,
+// chosen by kernels/layout.py::amp_cluster_size).  The grid is
+// (K * n_blocks, G): blockIdx.x / K is the block, blockIdx.y the point, and
+// nothing else in the body depends on the point, so each point decodes to
+// the bits of its own G = 1 launch.  CTA k of a cluster owns
 //   * the columns [k c / K, (k+1) c / K): x, the adjoint and the threshold;
 //   * the rows    [k s / K, (k+1) s / K): the final sum of the forward
 //     product, z' and y for those rows;
@@ -217,6 +222,8 @@ amp_fused_kernel(const float* __restrict__ yb, const uint32_t* __restrict__ seed
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t b = blockIdx.x / K;
+  // row of yb and xb: point blockIdx.y's block b
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * gridDim.x / K + b;
   const int tid = threadIdx.x;
   const int c0 = cut(c, K, rank), cw = cut(c, K, rank + 1) - c0;
   const int r0 = cut(s, K, rank), rw = cut(s, K, rank + 1) - r0;
@@ -238,7 +245,7 @@ amp_fused_kernel(const float* __restrict__ yb, const uint32_t* __restrict__ seed
   // columns c0 + 32 w + (0..31) at bits 0..31; Gaussian, the s row hashes.
 
   const uint32_t hb = block_hash(*seed_p, *offset_p + static_cast<uint32_t>(b));
-  const float* yrow = yb + b * s;
+  const float* yrow = yb + row * s;
   for (int i = tid; i < s; i += kThreads) z[i] = yrow[i];
   for (int i = tid; i < rw; i += kThreads) y[i] = yrow[r0 + i];
   for (int j = tid; j < cw; j += kThreads) x[j] = 0.0;
@@ -339,54 +346,80 @@ amp_fused_kernel(const float* __restrict__ yb, const uint32_t* __restrict__ seed
     factor = fminf(fmaxf(static_cast<float>(num / fmax(den, 1e-12)), 1.0f), 2.0f);
   }
   for (int j = tid; j < cw; j += kThreads)
-    xb[b * c + c0 + j] = __fmul_rn(static_cast<float>(x[j]), factor);
+    xb[row * c + c0 + j] = __fmul_rn(static_cast<float>(x[j]), factor);
   cluster.sync();  // no CTA leaves while a peer may still read its memory
 }
 
+// The attributes are caps of the kernel function, whatever the launch: set
+// them once to the most any launch may use.
 template <bool RAD>
-int launch(const float* yb, const uint32_t* seed, const uint32_t* id_offset,
-           float* xb, int n_blocks, int s, int c, int K, int G, int iters,
-           float mult, int debias, float scale, cudaStream_t stream) {
-  const Plan P(s, c, K, G);
-  const int bytes = static_cast<int>(P.bytes(s, RAD));
-  auto kernel = amp_fused_kernel<RAD>;
+cudaError_t configure() {
+  static cudaError_t status = [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        amp_fused_kernel<RAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(amp_fused_kernel<RAD>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  }();
+  return status;
+}
 
+// The launch configuration of G points of n_blocks blocks.
+cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int n_blocks, int points,
+                                 int K, int bytes, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(static_cast<unsigned>(K) * n_blocks);
+  cfg.gridDim = dim3(static_cast<unsigned>(K) * n_blocks, static_cast<unsigned>(points));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
 
-  // The attributes are caps of the kernel function, whatever the launch:
-  // set them once to the most any launch may use.
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+// Clusters of this shape the card holds at once, or a negative CUDA error.
+template <bool RAD>
+int max_active_clusters(int s, int c, int K, int G) {
+  cudaError_t err = configure<RAD>();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(
+      attr, 1, 1, K, static_cast<int>(Plan(s, c, K, G).bytes(s, RAD)), nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, amp_fused_kernel<RAD>, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return clusters;
+}
+
+template <bool RAD>
+int launch(const float* yb, const uint32_t* seed, const uint32_t* id_offset,
+           float* xb, int n_blocks, int points, int s, int c, int K, int G, int iters,
+           float mult, int debias, float scale, cudaStream_t stream) {
+  const Plan P(s, c, K, G);
+  const int bytes = static_cast<int>(P.bytes(s, RAD));
+  auto kernel = amp_fused_kernel<RAD>;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(attr, n_blocks, points, K, bytes, stream);
+
+  cudaError_t err = configure<RAD>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   // Check that one cluster of this shape fits the card, once per shape.
   static int checked_k = 0, checked_bytes = -1;
   if (checked_k != K || checked_bytes != bytes) {
     int clusters = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     checked_k = K;
     checked_bytes = bytes;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, yb, seed, id_offset, xb, s,
-                                             c, K, G, iters, mult, debias, scale);
+  err = cudaLaunchKernelEx(&cfg, kernel, yb, seed, id_offset, xb, s, c, K, G, iters,
+                           mult, debias, scale);
   // cudaLaunchKernelEx returns this launch's own status; clear it from the
   // runtime's last-error state so that no later caller picks it up
   if (err != cudaSuccess) cudaGetLastError();
@@ -401,21 +434,29 @@ extern "C" int64_t amp_fused_smem_bytes(int s, int c, int K, int G, int rademach
   return Plan(s, c, K, G).bytes(s, rademacher != 0);
 }
 
-// yb: (n_blocks, s) float32; xb: (n_blocks, c) float32; seed, id_offset:
-// one uint32 each in device memory; K, G from layout.py; scale = f32(1/sqrt(s)).
+// Clusters of K CTAs decoding s x c blocks that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or a negative CUDA error code.
+extern "C" int amp_fused_max_active_clusters(int s, int c, int K, int G, int rademacher) {
+  return rademacher ? max_active_clusters<true>(s, c, K, G)
+                    : max_active_clusters<false>(s, c, K, G);
+}
+
+// yb: (points, n_blocks, s) float32; xb: (points, n_blocks, c) float32;
+// seed, id_offset: one uint32 each in device memory; K, G from layout.py;
+// scale = f32(1/sqrt(s)).
 extern "C" int amp_fused_launch(const float* yb, const uint32_t* seed,
                                 const uint32_t* id_offset, float* xb,
-                                int n_blocks, int s, int c, int K, int G, int iters,
-                                float threshold_mult, int debias, int rademacher,
-                                float scale, void* stream) {
-  if (n_blocks <= 0 || c <= 0) return 0;
-  if (K < 1 || K > kMaxCluster || K > s || G < 1 || G > s)
+                                int n_blocks, int points, int s, int c, int K, int G,
+                                int iters, float threshold_mult, int debias,
+                                int rademacher, float scale, void* stream) {
+  if (n_blocks <= 0 || points <= 0 || c <= 0) return 0;
+  if (K < 1 || K > kMaxCluster || K > s || G < 1 || G > s || points > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Plan(s, c, K, G).bytes(s, rademacher != 0) > 232448)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   auto st = static_cast<cudaStream_t>(stream);
-  return rademacher ? launch<true>(yb, seed, id_offset, xb, n_blocks, s, c, K, G, iters,
-                                   threshold_mult, debias, scale, st)
-                    : launch<false>(yb, seed, id_offset, xb, n_blocks, s, c, K, G, iters,
-                                    threshold_mult, debias, scale, st);
+  return rademacher ? launch<true>(yb, seed, id_offset, xb, n_blocks, points, s, c, K, G,
+                                   iters, threshold_mult, debias, scale, st)
+                    : launch<false>(yb, seed, id_offset, xb, n_blocks, points, s, c, K, G,
+                                    iters, threshold_mult, debias, scale, st);
 }

@@ -39,8 +39,10 @@ def amp_decode_fused(yb: torch.Tensor, *, seed, c: int, iters: int,
                      id_offset=0):
     """Single-launch fused AMP decode (kernels/amp_fused.py).
 
-    ``nb_tile`` only chunks the plain version on the CPU; the CUDA kernel
-    decodes one block per thread-block cluster.
+    yb: (n_blocks, s_block) -> (n_blocks, c), or G points (G, n_blocks,
+    s_block) -> (G, n_blocks, c) in the same one launch.  ``nb_tile`` only
+    chunks the plain version on the CPU; the CUDA kernel decodes one block
+    of one point per thread-block cluster.
     """
     return amp_fused.amp_decode_fused(
         yb, seed, c, iters=iters, threshold_mult=threshold_mult,

@@ -17,6 +17,13 @@ A key is an int64 tensor of shape ``(2,)`` holding two uint32 words.
 uint32 ``+`` and ``>>`` are not implemented for CPU tensors in torch, so
 all words are int64 masked to 32 bits; a product or shift of a 32-bit word
 stays below 2**63.
+
+Every function also takes a stack of keys, shape ``(..., 2)``, and gives
+for each key the bits the same call on that key alone gives (``jax.vmap``
+semantics): ``fold_in`` returns ``(..., 2)``, ``split`` ``(..., num, 2)``
+and a draw of ``shape`` ``(..., *shape)``.  The words are integers, so the
+stacked call is bitwise the per-key one, in one set of launches for all
+keys.
 """
 from __future__ import annotations
 
@@ -65,11 +72,17 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _cipher(key: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
+    """threefry2x32 of each key in ``key (..., 2)`` on the count words
+    ``(n,)``: two ``(..., n)`` words (``(n,)`` for a single key)."""
+    return threefry2x32(key[..., 0:1], key[..., 1:2], x1, x2)
+
+
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: a new key from ``key`` and a 32-bit salt."""
     zero = torch.zeros((1,), dtype=torch.int64, device=key.device)
-    y1, y2 = threefry2x32(key[0], key[1], zero, zero + (int(data) & MASK32))
-    return torch.cat([y1, y2])
+    y1, y2 = _cipher(key, zero, zero + (int(data) & MASK32))
+    return torch.cat([y1, y2], dim=-1)
 
 
 def _counts(n: int, device) -> torch.Tensor:
@@ -79,18 +92,19 @@ def _counts(n: int, device) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(num, 2)`` keys."""
+    """``jax.random.split``: ``(..., num, 2)`` keys."""
     lo = _counts(num, key.device)
-    y1, y2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    y1, y2 = _cipher(key, torch.zeros_like(lo), lo)
     return torch.stack([y1, y2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """32-bit ``jax.random.bits``, as int64 words in ``[0, 2**32)``."""
+    """32-bit ``jax.random.bits``, as int64 words in ``[0, 2**32)``, of shape
+    ``(..., *shape)`` for keys ``(..., 2)``."""
     shape = _shape(shape)
     lo = _counts(math.prod(shape), key.device)
-    y1, y2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    return (y1 ^ y2).reshape(shape)
+    y1, y2 = _cipher(key, torch.zeros_like(lo), lo)
+    return (y1 ^ y2).reshape(*key.shape[:-1], *shape)
 
 
 def _as_f32(words: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,12 @@ Adam at the PS on the reconstructed gradient.
 
 Everything runs on ``device`` (the card unless the caller passes
 ``device="cpu"``); round ``t`` draws from ``PRNGKey(1000 + t)``.
+
+:func:`device_grads`, :func:`accuracy` and :func:`ce_loss` also take the
+params of G points at once (every leaf with a leading point axis), as a
+sweep's grid holds them.  Their products run per point: a batched cuBLAS
+product may pick another algorithm than a lone point's and change its
+bits.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from repro_torch import rng
 from repro_torch.configs.base import OTAConfig
 from repro_torch.convert import ravel, unravel
 from repro_torch.core.schemes import Scheme, get_scheme, round_simulated
-from repro_torch.device import resolve_device
+from repro_torch.device import per_point, resolve_device
 from repro_torch.optim.optim import Optimizer
 
 
@@ -47,18 +53,31 @@ def _mean_f32(total: torch.Tensor, n: int) -> torch.Tensor:
     return total.to(torch.float32) * float(np.float32(1.0 / n))
 
 
+def _points(fn, params, *args):
+    """``fn(params, *args)``, once per point when the params carry a
+    leading point axis (``w`` of rank 3), the results stacked."""
+    if params["w"].dim() == 2:
+        return fn(params, *args)
+    return per_point(lambda b, w: fn({"b": b, "w": w}, *args),
+                     params["b"], params["w"], rank=1)
+
+
 def ce_loss(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean test cross-entropy.  The division rounds as ``jnp.mean`` does;
     the sum runs in torch's order, not XLA's, so the two differ by about an
     ulp of the loss (within 1e-6 at the tests' sizes)."""
-    logp = torch.log_softmax(predict(params, x), dim=-1)
-    return _mean_f32(-logp.gather(-1, y[:, None]).sum(), y.shape[0])
+    def one(p, x, y):
+        logp = torch.log_softmax(predict(p, x), dim=-1)
+        return _mean_f32(-logp.gather(-1, y[:, None]).sum(), y.shape[0])
+    return _points(one, params, x, y)
 
 
 def accuracy(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Test accuracy, bitwise ``jnp.mean`` of the hits: count * f32(1/n)."""
-    hits = (predict(params, x).argmax(-1) == y).sum()
-    return _mean_f32(hits, y.shape[0])
+    def one(p, x, y):
+        hits = (predict(p, x).argmax(-1) == y).sum()
+        return _mean_f32(hits, y.shape[0])
+    return _points(one, params, x, y)
 
 
 @dataclass
@@ -81,7 +100,18 @@ def device_grads(params, xd: torch.Tensor, yd: torch.Tensor,
     softmax residual ``r = (softmax(x w + b) - onehot(y)) / B``, it is
     ``x^T r`` for w and ``sum_b r`` for b, one batched product for all
     devices.  Flat layout as ``ravel_pytree``: ``[b, w]``.
+
+    Params of G points give ``(G, M, d)`` gradients, each point's as its
+    own call gives them; ``momenta`` then is ``(G, M, d)`` too.
     """
+    if params["w"].dim() == 3:
+        def one(b, w, mom):
+            return device_grads({"b": b, "w": w}, xd, yd, mom,
+                                momentum_correction=momentum_correction)
+        if momenta is None:
+            return per_point(lambda b, w: one(b, w, None)[0], params["b"],
+                             params["w"], rank=1), None
+        return per_point(one, params["b"], params["w"], momenta, rank=1)
     logits = torch.matmul(xd, params["w"]) + params["b"]        # (M, B, C)
     resid = torch.softmax(logits, dim=-1)
     resid = resid - torch.nn.functional.one_hot(

@@ -1,10 +1,13 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card, and a sweep
+grid's point axis against each point's own call there.
 
 Marked ``cuda``: they skip where no CUDA device is present.  On a machine
 with one, from the root of the checkout:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -273,12 +276,17 @@ def _graph_case(name, dev):
     if name == "ota_project_t":
         y = torch.randn(1, 2, 1024, generator=gen, device=dev)
         return lambda: ota_project.ota_project_t(y, 12345, 4096)
+    if name == "amp_fused_points":
+        yb = torch.stack([_noisy_block_sparse(2, 4096, 1024, True, gen, dev)
+                          for _ in range(4)])
+        return lambda: amp_fused.amp_decode_fused(yb, 9, 4096, iters=20)
     yb = _noisy_block_sparse(2, 4096, 1024, True, gen, dev)
     return lambda: amp_fused.amp_decode_fused(yb, 9, 4096, iters=20)
 
 
 @pytest.mark.parametrize("name", ["ef_sparsify", "ota_project",
-                                  "ota_project_t", "amp_fused"])
+                                  "ota_project_t", "amp_fused",
+                                  "amp_fused_points"])
 def test_wrapper_captured_in_cuda_graph(dev, name):
     """Each wrapper can be captured in a CUDA graph (as ``chip_smoke.py``
     times it) and the replayed graph's output equals an eager call."""
@@ -331,3 +339,240 @@ def test_engine_equals_run_federated_on_card(dev, scheme):
     assert eng.accs == loop.accs and eng.losses == loop.losses
     assert all(torch.equal(eng.params[k], loop.params[k])
                for k in loop.params)
+
+
+@pytest.mark.parametrize("points", [1, 3, 4])
+@pytest.mark.parametrize("rademacher", [True, False])
+def test_amp_fused_points(dev, points, rademacher):
+    """G points of the main path's decode in one launch: each point bitwise
+    its own G = 1 launch, the bar against the plain version (bitwise for
+    Rademacher entries), and an ``id_offset`` sub-range of every point
+    bitwise the full decode's rows."""
+    gen = _gen(dev, 50 + points)
+    yb = torch.stack([_noisy_block_sparse(2, 4096, 1024, rademacher, gen,
+                                          dev) for _ in range(points)])
+    before = amp_fused.launches
+    out = amp_fused.amp_decode_fused(yb, 9, 4096, iters=20,
+                                     rademacher=rademacher)
+    assert amp_fused.launches == before + 1
+    assert out.shape == (points, 2, 4096)
+    for g in range(points):
+        one = amp_fused.amp_decode_fused(yb[g], 9, 4096, iters=20,
+                                         rademacher=rademacher)
+        assert torch.equal(out[g], one)
+    want = amp_blocked_core(yb, 9, 4096, iters=20, rademacher=rademacher)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    if rademacher:
+        assert torch.equal(out, want)
+    part = amp_fused.amp_decode_fused(yb[:, 1:].contiguous(), 9, 4096,
+                                      iters=20, rademacher=rademacher,
+                                      id_offset=1)
+    assert torch.equal(part, out[:, 1:])
+
+
+def test_amp_fused_max_active_clusters(dev):
+    """The card holds at least one 16-CTA cluster of the main path's
+    decode, and the query answers for the other cluster sizes too."""
+    assert amp_fused.max_active_clusters(1024, 4096) >= 1
+    assert amp_fused.max_active_clusters(1024, 4096, rademacher=False) >= 1
+    assert amp_fused.max_active_clusters(32, 64) >= 1
+
+
+def test_point_rows_pass_through_the_wrappers(dev):
+    """A grid's (G, M) rows go through ef_sparsify and ota_project as G * M
+    rows, and each point's rows are bitwise its own M-row call."""
+    gen = _gen(dev, 61)
+    g = torch.randn(4, 25, 7850, generator=gen, device=dev)
+    d = torch.randn(4, 25, 7850, generator=gen, device=dev)
+    tau = torch.rand(4, 25, generator=gen, device=dev)
+    x = torch.randn(4, 25, 2, 4096, generator=gen, device=dev)
+    sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
+    y = ota_project.ota_project(x, 12345, 1024)
+    for p in range(4):
+        sp1, nd1 = ef_sparsify.ef_sparsify(g[p], d[p], tau[p])
+        assert torch.equal(sp[p], sp1) and torch.equal(nd[p], nd1)
+        assert torch.equal(y[p], ota_project.ota_project(x[p], 12345, 1024))
+
+
+@pytest.mark.parametrize("scheme", ["ideal", "a_dsgd", "d_dsgd", "qsgd",
+                                    "signsgd"])
+def test_run_grid_equals_run_compiled_on_card(dev, scheme):
+    """A batched grid of P-bar points equals each point's own run on the
+    card, accuracies and losses bitwise, for every scheme of the paper."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.experiments import engine, sweep
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    cfg = OTAConfig(scheme=scheme, s_frac=0.5, k_frac=0.25, p_avg=500.0,
+                    total_steps=6, projection="blocked", block_size=64,
+                    use_kernel=True, amp_iters=6, mean_removal_steps=2)
+    grid = [{"p_avg": 50.0}, {"p_avg": 500.0}, {"p_avg": 2000.0}]
+    ce = engine.CompiledExperiment(xd, yd, xte, yte, engine.Experiment(
+        cfg=cfg, steps=6, eval_every=2))
+    ov, keys, _ = sweep.grid_inputs(ce, grid, 6)
+    outs = ce.run_grid(ov, keys)
+    for g, point in enumerate(grid):
+        one = engine.run_compiled(
+            xd, yd, xte, yte, dataclasses.replace(cfg, **point),
+            steps=6, lr=1e-3, eval_every=1)
+        assert outs["acc"][g].cpu().numpy().tolist() == \
+            one.all_accs.tolist()
+        assert outs["loss"][g].cpu().numpy().tolist() == \
+            one.all_losses.tolist()
+
+
+@pytest.mark.parametrize("scheme", ["d_dsgd", "signsgd", "qsgd"])
+def test_digital_run_federated_on_card_matches_cpu(dev, scheme):
+    """The digital baselines' looped driver on the card, within the bar of
+    the CPU's run (the gradients' cuBLAS sums differ from the CPU's)."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.train.paper_repro import run_federated
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    cfg = OTAConfig(scheme=scheme, s_frac=0.5, p_avg=500.0, total_steps=6)
+    rg = run_federated(xd, yd, xte, yte, cfg, steps=6, eval_every=1)
+    rc = run_federated(xd, yd, xte, yte, cfg, steps=6, eval_every=1,
+                       device="cpu")
+    assert [m["q_t"] for m in rg.metrics] == [m["q_t"] for m in rc.metrics]
+    np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the point axis, site by site, at the sweep phase's shapes: G = 4 points of
+# M = 25 devices, d = 7850, frames of 2 * 1024 + 2, 10 000 test rows.  A
+# batched call must give each point the bits of that point's own call on
+# fresh tensors, as the point's own run holds them.
+# ---------------------------------------------------------------------------
+
+G, M_DEV, D_MODEL, S_TILDE, N_TEST = 4, 25, 7850, 2048, 10000
+
+
+def _lone(fn, *xs):
+    """``fn`` on a fresh copy of each point's inputs, stacked."""
+    outs = [fn(*(x[g].clone() for x in xs)) for g in range(xs[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def _assert_same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a.double() - b.double()).abs().max())
+
+
+def _site_case(name, dev):
+    """``(fn, inputs)`` of one point-axis site: ``fn`` takes either the
+    batched inputs or one point's."""
+    from repro_torch import rng
+    from repro_torch.core import amp, channel, schemes
+    from repro_torch.core.projection import DenseProjector
+    from repro_torch.train import paper_repro as tpr
+    gen = _gen(dev, 7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    if name == "mac_sum":
+        keys = rng.split(rng.PRNGKey(3, dev), G)
+        return (lambda f, k: channel.mac_sum(f, k, 1.0),
+                (randn(G, M_DEV, S_TILDE + 2), keys))
+    if name.startswith("make_frame"):
+        n = int(name.split("_")[-1])
+        return (lambda g, p: channel.make_frame(g, p, True),
+                (randn(G, M_DEV, n), 500.0 * randn(G, M_DEV).abs()))
+    if name == "frame_power":
+        frames, _ = channel.make_frame(randn(G, M_DEV, S_TILDE),
+                                       500.0 * randn(G, M_DEV).abs(), True)
+        return channel.frame_power, (frames,)
+    if name == "metric_mean":
+        ints = torch.randint(0, 500, (G, M_DEV), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return (lambda f, i: (schemes.metric_mean(f),
+                              schemes.metric_mean(i)),
+                (randn(G, M_DEV).abs(), ints))
+    xd = randn(M_DEV, 40, 784)
+    yd = torch.randint(0, 10, (M_DEV, 40), generator=gen, device=dev)
+    params = (0.1 * randn(G, 10), 0.1 * randn(G, 784, 10))
+    if name == "device_grads":
+        return (lambda b, w, mom: tpr.device_grads(
+                    {"b": b, "w": w}, xd, yd, mom, momentum_correction=0.5),
+                (*params, randn(G, M_DEV, D_MODEL)))
+    if name == "accuracy_and_loss":
+        xt = randn(N_TEST, 784)
+        yt = torch.randint(0, 10, (N_TEST,), generator=gen, device=dev)
+        return (lambda b, w: (tpr.accuracy({"b": b, "w": w}, xt, yt),
+                              tpr.ce_loss({"b": b, "w": w}, xt, yt)),
+                params)
+    if name == "dense_amp":
+        proj = DenseProjector(d=D_MODEL, s_tilde=S_TILDE, seed=5)
+        return (lambda y: amp.amp_decode(y, proj, iters=20),
+                (randn(G, S_TILDE),))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["mac_sum", "make_frame_2048",
+                                  "make_frame_1962", "frame_power",
+                                  "metric_mean", "device_grads",
+                                  "accuracy_and_loss", "dense_amp"])
+def test_point_axis_site_on_card(dev, name):
+    fn, xs = _site_case(name, dev)
+    _assert_same(fn(*xs), _lone(fn, *xs))
+
+
+def _round_cfg(name):
+    from repro_torch.configs.base import ota_overrides
+    base = dataclasses.replace(ota_overrides("mnist_mlp"), use_kernel=True,
+                               amp_iters=20, total_steps=20)
+    if name == "a_dsgd_dense":
+        return dataclasses.replace(base, scheme="a_dsgd", projection="dense",
+                                   use_kernel=False)
+    return dataclasses.replace(base, scheme=name)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["ideal", "a_dsgd", "a_dsgd_dense",
+                                  "d_dsgd", "signsgd", "qsgd"])
+def test_point_axis_round_on_card(dev, name, masked):
+    """One batched round (``round_simulated``, or ``round_masked`` with a
+    mask per point) at the sweep's shapes: each point's ghat, error state
+    and metrics are its own round's, bitwise."""
+    from repro_torch import rng
+    from repro_torch.core.schemes import (
+        MACContext, get_scheme, round_simulated,
+    )
+    from repro_torch.experiments.engine import round_masked
+    cfg = _round_cfg(name)
+    gen = _gen(dev, 11)
+    grads = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    deltas = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    keys = rng.split(rng.PRNGKey(1002, dev), G)
+    masks = (torch.rand(G, M_DEV, generator=gen, device=dev) > 0.3).float()
+    one = [get_scheme(dataclasses.replace(cfg, p_avg=p), D_MODEL, M_DEV,
+                      device=dev) for p in (50.0, 200.0, 500.0, 1000.0)]
+    ov = {"p_sched": torch.stack([s.p_sched for s in one])}
+    if hasattr(one[0], "q_sched"):
+        ov["q_sched"] = torch.stack([s.q_sched for s in one])
+    grid = one[0].with_overrides(**ov)
+    grid.q_max = max(getattr(s, "q_max", 1) for s in one)
+    ctx = MACContext(m=M_DEV, use_kernel=cfg.use_kernel)
+
+    def round_(sch, g, d, k, mk):
+        if masked:
+            return round_masked(sch, g, d, 1, k, mk, ctx)
+        return round_simulated(sch, g, d, 1, k, ctx)
+
+    gh, dl, met = round_(grid, grads, deltas, keys, masks)
+    for p, sch in enumerate(one):
+        gh1, dl1, met1 = round_(sch, grads[p].clone(), deltas[p].clone(),
+                                keys[p].clone(), masks[p].clone())
+        assert torch.equal(gh[p], gh1) and torch.equal(dl[p], dl1)
+        assert set(met) == set(met1)
+        for k in met1:
+            assert torch.equal(met[k][p], met1[k]), k

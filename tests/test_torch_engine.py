@@ -244,8 +244,10 @@ def test_unported_parts_raise(data, what):
         ce = engine.CompiledExperiment(*data, exp, device="cpu")
         keys = engine.round_keys(1, 0, "cpu")
         if what == "overrides":
-            with pytest.raises(NotImplementedError):
-                ce.run({"p_sched": torch.ones(1)}, keys)
+            # the schedules are ported (tests/test_torch_sweep.py); the
+            # channel scalars need the fading axis
+            with pytest.raises(NotImplementedError, match="fading_threshold"):
+                ce.run({"fading_threshold": torch.ones(())}, keys)
         else:
             with pytest.raises(NotImplementedError):
                 engine.round_masked(ce.scheme, torch.zeros(M, ce.d),

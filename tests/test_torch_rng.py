@@ -85,3 +85,59 @@ def test_draws_are_device_tensors_of_the_key():
     key = rng.PRNGKey(3)
     assert rng.normal(key, (4,)).dtype == torch.float32
     assert rng.split(key, 3).shape == (3, 2)
+
+
+def _key_stack(lead):
+    """Keys of shape (*lead, 2), the same in both packages."""
+    n = int(np.prod(lead))
+    seeds = np.arange(n, dtype=np.uint32) * 7919 + 5
+    kj = jax.vmap(jax.random.PRNGKey)(seeds).reshape(*lead, 2)
+    return kj, torch.from_numpy(_np(kj))
+
+
+def _vmap_over(fn, lead):
+    for _ in lead:
+        fn = jax.vmap(fn)
+    return fn
+
+
+@pytest.mark.parametrize("lead", [(1,), (4,), (3, 5)])
+def test_key_stack_fold_in_split_bitwise(lead):
+    """A stack of keys (..., 2) gives jax.vmap's bits, and each key's bits
+    are those of the same call on that key alone."""
+    kj, kt = _key_stack(lead)
+    for salt in (0, 1, 2, 2**32 - 1):
+        want = _vmap_over(lambda k: jax.random.fold_in(k, salt), lead)(kj)
+        got = rng.fold_in(kt, salt)
+        np.testing.assert_array_equal(_np(want), got.numpy())
+        np.testing.assert_array_equal(
+            rng.fold_in(kt.reshape(-1, 2)[-1], salt).numpy(),
+            got.reshape(-1, 2)[-1].numpy())
+    for num in (1, 25):
+        want = _vmap_over(lambda k: jax.random.split(k, num), lead)(kj)
+        got = rng.split(kt, num)
+        assert got.shape == (*lead, num, 2)
+        np.testing.assert_array_equal(_np(want), got.numpy())
+
+
+@pytest.mark.parametrize("lead", [(4,), (2, 3)])
+@pytest.mark.parametrize("shape", [(7,), (3, 5)])
+def test_key_stack_draws_bitwise(lead, shape):
+    kj, kt = _key_stack(lead)
+    bits = _vmap_over(lambda k: jax.random.bits(k, shape, jnp.uint32),
+                      lead)(kj)
+    np.testing.assert_array_equal(_np(bits), rng.random_bits(kt, shape)
+                                  .numpy())
+    uni = _vmap_over(lambda k: jax.random.uniform(k, shape), lead)(kj)
+    np.testing.assert_array_equal(np.asarray(uni),
+                                  rng.uniform(kt, shape).numpy())
+    nrm = _vmap_over(lambda k: jax.random.normal(k, shape), lead)(kj)
+    got = rng.normal(kt, shape)
+    assert got.shape == (*lead, *shape)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(nrm).view(np.int32))
+    flat = kt.reshape(-1, 2)
+    for i in range(flat.shape[0]):
+        np.testing.assert_array_equal(
+            rng.normal(flat[i], shape).numpy().view(np.int32),
+            got.reshape(-1, *shape)[i].numpy().view(np.int32))

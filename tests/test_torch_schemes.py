@@ -85,9 +85,13 @@ def test_unported_axes_raise_at_construction():
                dict(scheduler="round_robin"), dict(local="fedavg")):
         with pytest.raises(NotImplementedError):
             ts.get_scheme(TorchOTAConfig(**kw), D, M, device="cpu")
-    for name in ("d_dsgd", "signsgd", "qsgd"):
+    for name in ("a_dsgd_csi_err", "a_dsgd_blind"):
         with pytest.raises(NotImplementedError):
             ts.get_scheme(TorchOTAConfig(scheme=name), D, M, device="cpu")
+    # the digital baselines are ported: they build
+    for name in ("d_dsgd", "signsgd", "qsgd"):
+        assert ts.get_scheme(TorchOTAConfig(scheme=name), D, M,
+                             device="cpu").name == name
 
 
 def test_channel_dim_and_k_match_reference():
