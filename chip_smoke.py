@@ -72,12 +72,28 @@ Phases, one JSON line each:
             once per round for all four points, the other groups none.  Per
             scheme: ms per batched round and the same point's ms per round
             alone (CUDA events, steady state), launches, final accuracies;
-8. kernels  the per-kernel record: route, source, the TPU kernel it
+8. channel  the channel axes at the slice's scale and config: Rayleigh
+            truncated inversion (iid, threshold 0.3), the Gauss-Markov
+            process (rho 0.95, W = 64), noisy CSI (csi_err_var 0.1), blind
+            transmitters (K = 2 PS antennas), each through run_federated
+            and run_compiled (entry for entry equal) and a checkpointed
+            run_compiled stopped at round 10 and resumed (bitwise); and the
+            disk geometry (radius 800 m, gamma 3) with the prop_fair
+            scheduler on 2 subbands, through run_compiled and its resume
+            only (the looped driver refuses a scheduler).  Every run
+            launches ef_sparsify, ota_project and amp_fused once a round;
+            csi_err_var = 0 is bitwise Rayleigh; two sweep groups (the
+            csi_err_var grid, G = 4, and cell_radius x 3 under gain_ranked
+            for each of 1 and 2 subbands, G = 3 each) equal their points'
+            own runs.  Per config: ms per round of run_compiled timed in
+            turns with the AWGN slice's, and for the Gauss-Markov round the
+            ms of its RNG draws and of its channel draw;
+9. kernels  the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
-Each path (slice, unfused_decode, engine, sweep) runs with every launch
-count set to 0 just before it and read just after.
+Each path (slice, unfused_decode, engine, sweep, channel) runs with every
+launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -142,11 +158,29 @@ KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
 PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
-                "sweep": ("ef_sparsify", "ota_project", "amp_fused")}
+                "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
+                "channel": ("ef_sparsify", "ota_project", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
 #: point counts at which the point-axis amp_fused is also timed
 POINT_SCALING = (1, 2, 3, 4, 6, 8)
+#: the channel phase's configurations, each over the slice's config: Fig.
+#: 9's fading schemes and Fig. 13 panel B's geometry with prop_fair
+CHANNEL_RUNS = {
+    "fading_iid": dict(scheme="a_dsgd_fading", fading_process="iid",
+                       fading_threshold=0.3),
+    "fading_gauss_markov": dict(scheme="a_dsgd_fading",
+                                fading_process="gauss_markov",
+                                fading_rho=0.95, fading_window=64),
+    "csi_err": dict(scheme="a_dsgd_csi_err", csi_err_var=0.1),
+    "blind": dict(scheme="a_dsgd_blind", ps_antennas=2),
+    "geometry_prop_fair": dict(scheme="a_dsgd", fading="rayleigh",
+                               geometry="disk", cell_radius=800.0,
+                               path_loss_exp=3.0, scheduler="prop_fair",
+                               n_subbands=2),
+}
+CHANNEL_CSI_GRID = (0.0, 0.1, 0.4, 0.8)
+CHANNEL_RADII = (100.0, 400.0, 1600.0)
 
 
 class CheckFailed(RuntimeError):
@@ -933,6 +967,159 @@ def run_sweep_phase(data, cfg, device, steps: int = STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the channel axes
+# ---------------------------------------------------------------------------
+
+
+def channel_rng_ms(cfg, m: int, device, reps: int = 10) -> dict:
+    """ms of one round's draws for a channel config: the round's own RNG
+    (the salted keys, the device keys, the AWGN) and the channel draw."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.core import channel
+    from repro_torch.core.schemes import get_scheme
+    scheme = get_scheme(cfg, 7850, m, device=device)
+    key = rng.PRNGKey(1005, device=device)
+    y_len = scheme.channel_dim()
+    draw = lambda: scheme.channel_draw(rng.fold_in(key, 2), 5, m)
+    draw()
+    torch.cuda.synchronize()
+    return {"rng_ms": cuda_ms(lambda: (
+                rng.split(rng.fold_in(key, 1), m), rng.fold_in(key, 2),
+                channel.awgn(rng.fold_in(key, 0), (y_len,), 1.0)),
+                reps=reps),
+            "channel_draw_ms": cuda_ms(draw, reps=reps)}
+
+
+def _same_run(a, b) -> bool:
+    return (a.accs == b.accs and a.losses == b.losses
+            and a.all_losses.tolist() == b.all_losses.tolist())
+
+
+def run_channel_phase(data, cfg, device, steps: int = STEPS,
+                      eval_every: int = 5, stop_at: int = 10):
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.kernels import ops
+    from repro_torch.train.paper_repro import run_federated
+
+    x_dev, y_dev, xte, yte = data
+    m = int(x_dev.shape[0])
+    kw = dict(steps=steps, lr=1e-3, eval_every=eval_every, device=device)
+    total = {}
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; every path kernel must launch once a round."""
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        return out, n
+
+    runs, compiled = [], {}
+    for name, over in CHANNEL_RUNS.items():
+        c = dataclasses.replace(cfg, **over)
+        rec = dict(name=name, config=over)
+        run, n = counted(lambda: engine.run_compiled(*data, c, **kw))
+        rec["launches_run_compiled"] = n
+        check(all(np.isfinite(run.all_losses)),
+              f"channel {name}: non-finite losses {run.losses}")
+        if c.scheduler == "none":
+            loop, n = counted(lambda: run_federated(
+                x_dev, y_dev, xte, yte, c, **kw))
+            rec["launches_run_federated"] = n
+            check(loop.accs == run.accs and loop.losses == run.losses,
+                  f"channel {name}: run_compiled {run.accs} {run.losses} "
+                  f"differs from run_federated {loop.accs} {loop.losses}")
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = dict(checkpoint_dir=tmp, checkpoint_every=eval_every, **kw)
+            stopped = engine.run_compiled(*data, c, stop_after_step=stop_at,
+                                          **ck)
+            check(stopped is None, f"channel {name}: no stop")
+            resumed = engine.run_compiled(*data, c, resume=True, **ck)
+        torch.cuda.synchronize()
+        check(_same_run(resumed, run) and all(
+            torch.equal(resumed.params[k], run.params[k])
+            for k in run.params),
+            f"channel {name}: the resumed run is not bitwise")
+        for path_name, counts in (("run_compiled", rec[
+                "launches_run_compiled"]), ("run_federated", rec.get(
+                "launches_run_federated"))):
+            for k in PATH_KERNELS["channel"]:
+                check(counts is None or counts[k] == steps,
+                      f"channel {name}: {k} launched {counts and counts[k]} "
+                      f"times in {path_name}, expected {steps}")
+        rec.update(losses=run.losses, accs=run.accs, final_acc=run.accs[-1],
+                   equals_run_federated=c.scheduler == "none",
+                   resumed_bitwise=True,
+                   active_frac=[mt["active_frac"] for mt in run.metrics])
+        compiled[name] = run
+        runs.append(rec)
+
+    # csi_err_var = 0 is the perfect-CSI scheme bit for bit
+    zero = engine.run_compiled(*data, dataclasses.replace(
+        cfg, scheme="a_dsgd_csi_err", csi_err_var=0.0,
+        fading_threshold=0.3), **kw)
+    check(_same_run(zero, compiled["fading_iid"]),
+          "channel: csi_err_var = 0 is not bitwise a_dsgd_fading")
+
+    # two sweep groups, each record its own run_compiled
+    groups = []
+    sweeps = [(dataclasses.replace(cfg, **CHANNEL_RUNS["csi_err"]),
+               {"csi_err_var": list(CHANNEL_CSI_GRID)})]
+    for n_sub in (1, 2):
+        sweeps.append((dataclasses.replace(
+            cfg, **{**CHANNEL_RUNS["geometry_prop_fair"],
+                    "scheduler": "gain_ranked", "n_subbands": n_sub}),
+            {"cell_radius": list(CHANNEL_RADII)}))
+    for base, axes in sweeps:
+        res, n = counted(lambda: sweep.run_sweep(
+            (x_dev, y_dev), (xte, yte), base, axes, steps=steps, lr=1e-3,
+            eval_every=eval_every, device=device))
+        (axis, values), = axes.items()
+        for k in PATH_KERNELS["channel"]:
+            check(n[k] == steps, f"channel sweep {axis}: {k} launched "
+                  f"{n[k]} times, expected {steps}")
+        for rec in res.records:
+            one = engine.run_compiled(*data, dataclasses.replace(
+                base, **{axis: rec[axis]}), **kw)
+            check(rec["accs"] == one.accs and rec["losses"] == one.losses,
+                  f"channel sweep {axis}={rec[axis]}: record is not its own "
+                  "run_compiled")
+        groups.append(dict(axis=axis, values=values, points=len(values),
+                           scheduler=base.scheduler,
+                           n_subbands=base.n_subbands, launches=n,
+                           final_accs=[r["final_acc"] for r in res.records],
+                           vs_run_compiled="bitwise"))
+
+    # ms per round of each config beside the AWGN slice's, in turns
+    exp0 = engine.Experiment(cfg=cfg, steps=steps, eval_every=eval_every)
+    awgn_ce = engine.CompiledExperiment(*data, exp0, device=device)
+    keys = engine.round_keys(steps, 0, device)
+    for rec in runs:
+        c = dataclasses.replace(cfg, **rec["config"])
+        ce = engine.CompiledExperiment(*data, dataclasses.replace(
+            exp0, cfg=c), device=device)
+        awgn, chan = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                    lambda: ce.run({}, keys), reps=2)
+        rec["ms_per_round"] = chan / steps
+        rec["awgn_ms_per_round"] = awgn / steps
+        if rec["name"] == "fading_gauss_markov":
+            rec.update(channel_rng_ms(c, m, device))
+    return dict(
+        phase="channel", steps=steps, m=m, b=int(x_dev.shape[1]), d=7850,
+        config=dict(projection=cfg.projection, block_size=cfg.block_size,
+                    use_kernel=cfg.use_kernel, amp_iters=cfg.amp_iters),
+        launches=total, runs=runs, csi_err0_is_fading="bitwise",
+        sweep_groups=groups)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1013,9 +1200,12 @@ def main() -> int:
     emit(eng)
     sw = run_sweep_phase(data, cfg, device)
     emit(sw)
+    ch = run_channel_phase(data, cfg, device)
+    emit(ch)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
-             "engine": eng["launches"], "sweep": sw["launches"]}
+             "engine": eng["launches"], "sweep": sw["launches"],
+             "channel": ch["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]

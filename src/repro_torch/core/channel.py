@@ -18,8 +18,8 @@ written out, so ``make_frame`` takes ``(..., s_tilde)`` projections and
 ``(...)`` power budgets.  A sweep's grid adds a leading point axis G in
 front of the devices: ``mac_sum`` and ``frame_power`` then take
 ``(G, M, s)`` frames (``mac_sum`` one key per point, ``(G, 2)``), and
-``ps_normalize`` ``(G, s_tilde + 2)``.  The
-fading helpers are not ported yet.
+``ps_normalize`` ``(G, s_tilde + 2)``.  The fading helpers at the bottom
+implement the ``a_dsgd_fading`` scheme's truncated channel inversion.
 """
 from __future__ import annotations
 
@@ -29,6 +29,9 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.core.fading import (
+    complex_normals, magnitude, point_scalar, sqrt_f32,
+)
 from repro_torch.device import per_point, row_sum
 
 
@@ -68,16 +71,22 @@ def awgn(key: torch.Tensor, shape, sigma2: float) -> torch.Tensor:
     return float(np.sqrt(np.float32(sigma2))) * rng.normal(key, shape)
 
 
-def mac_sum(frames: torch.Tensor, key: torch.Tensor,
-            sigma2: float) -> torch.Tensor:
+def mac_sum(frames: torch.Tensor, key: torch.Tensor, sigma2) -> torch.Tensor:
     """Simulation path: y = sum_m x_m + z over the device axis.
 
     ``frames`` (M, s) with one key (2,), or (G, M, s) with a key per point
     (G, 2): each point sums its own devices and draws its AWGN from its own
-    key.
+    key.  ``sigma2`` is a python float, or a 0-dim or ``(G,)`` float32
+    tensor when the channel scales it (the blind PS combiner); the noise
+    is then ``sqrt(sigma2) * z`` added with one fused multiply-add, as the
+    reference's ``jit`` compiles a traced variance.
     """
     y = frames.sum(dim=-2)
-    return y + awgn(key, y.shape[key.dim() - 1:], sigma2)
+    shape = y.shape[key.dim() - 1:]
+    if not isinstance(sigma2, torch.Tensor):
+        return y + awgn(key, shape, sigma2)
+    scale = sqrt_f32(sigma2.to(torch.float32))[..., None]
+    return rng.fma_f32(scale, rng.normal(key, shape), y)
 
 
 #: a received scale slot below this is indistinguishable from the unit-
@@ -96,3 +105,26 @@ def ps_normalize(y: torch.Tensor, use_mean_removal) -> torch.Tensor:
     use = float(use_mean_removal)
     scale = torch.where(scale_slot > SCALE_SLOT_FLOOR, scale_slot, 1.0)
     return (body + use * mu_slot) / scale
+
+
+# ---------------------------------------------------------------------------
+# fading MAC (beyond-paper: the §II extension realised in the follow-up [34])
+# ---------------------------------------------------------------------------
+
+
+def rayleigh_gains(key: torch.Tensor, m: int) -> torch.Tensor:
+    """|h_m| for a flat Rayleigh-fading block: |CN(0,1)| magnitudes, the
+    draw and the fused sum of squares of :mod:`repro_torch.core.fading`."""
+    return magnitude(*complex_normals(key, m))
+
+
+def truncated_inversion_power(h: torch.Tensor, threshold=0.3):
+    """Truncated channel inversion (follow-up [34] §III).
+
+    Devices with ``|h_m|`` below the threshold stay silent; the rest
+    pre-invert, so the usable received power is ``P_t * h_m**2``.  Returns
+    ``(h**2 * active, active)``.  ``threshold`` is a float, or a 0-dim or
+    ``(G,)`` tensor for G points of ``(G, m)`` gains.
+    """
+    active = h >= point_scalar(threshold, h.device)
+    return torch.where(active, h * h, 0.0), active

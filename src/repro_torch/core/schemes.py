@@ -23,10 +23,15 @@ of such a batched round equals its own run: the dense products and the sums
 along each device's row run per point (:func:`repro_torch.device.per_point`
 says why); the rest runs batched.
 
-Ported: ``ideal``, ``a_dsgd`` (dense and blocked projection) and the
-digital baselines ``d_dsgd``, ``signsgd`` and ``qsgd``, with the
-:func:`round_simulated` driver.  The channel, geometry, robustness,
-scheduling and local-compute axes are not ported yet: a config that asks
+Ported: ``ideal``, ``a_dsgd`` (dense and blocked projection), the
+digital baselines ``d_dsgd``, ``signsgd`` and ``qsgd``, and the fading
+schemes ``a_dsgd_fading``, ``a_dsgd_csi_err`` and ``a_dsgd_blind`` over the
+channel axes (fading processes, CSI models, the disk geometry); the
+:func:`round_simulated` driver runs them all.  The channel scalars (``fading_threshold``,
+``csi_err_var``, ``fading_rho``, ``cell_radius``, ``path_loss_exp``,
+``n_subbands``) are 0-dim float32 tensors on the scheme's device, ``(G,)``
+in a grid, and every use broadcasts them along the devices.  The
+robustness and local-compute axes are not ported yet: a config that asks
 for one raises when its scheme is built, and never runs the plain path
 silently.
 """
@@ -43,7 +48,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.configs.base import OTAConfig
-from repro_torch.core import channel, compression, power
+from repro_torch.core import channel, compression, fading, geometry, power
 from repro_torch.core.amp import amp_decode
 from repro_torch.core.projection import DenseProjector, make_projector
 from repro_torch.device import div_f32, per_point, resolve_device
@@ -81,7 +86,12 @@ SCHEME_REGISTRY: Dict[str, Type["Scheme"]] = {}
 PAPER_SCHEMES = ("ideal", "a_dsgd", "d_dsgd", "signsgd", "qsgd")
 
 #: schemes of the reference that the port does not run yet
-NOT_PORTED_SCHEMES = ("a_dsgd_fading", "a_dsgd_csi_err", "a_dsgd_blind")
+NOT_PORTED_SCHEMES: Tuple[str, ...] = ()
+
+#: the channel-model scalars a scheme carries, one float32 each (a
+#: sweep's ``SCALAR_VMAP_AXES``)
+CHANNEL_SCALARS = ("csi_err_var", "fading_threshold", "fading_rho",
+                   "cell_radius", "path_loss_exp", "n_subbands")
 
 
 def register_scheme(name: str):
@@ -116,15 +126,9 @@ def get_scheme(cfg: OTAConfig, d: int, m: int, device=None) -> "Scheme":
 def _unported_axes(cfg: OTAConfig) -> Tuple[str, ...]:
     """The configured axes the port cannot run yet."""
     bad = []
-    if cfg.fading != "none":
-        bad.append(f"fading={cfg.fading!r}")
-    if cfg.geometry != "none":
-        bad.append(f"geometry={cfg.geometry!r}")
     if (cfg.robust or cfg.byzantine_frac > 0 or cfg.fault_rate > 0
             or cfg.erasure_prob > 0):
         bad.append("robust")
-    if cfg.scheduler != "none":
-        bad.append(f"scheduler={cfg.scheduler!r}")
     if cfg.local != "sgd" or cfg.local_epochs != 1:
         bad.append(f"local={cfg.local!r}, local_epochs={cfg.local_epochs}")
     return tuple(bad)
@@ -135,6 +139,8 @@ class Scheme:
 
     name: str = "?"
     analog: bool = False
+    #: descriptive CSI model of the scheme's channel
+    csi: str = "perfect"
 
     def __init__(self, cfg: OTAConfig, d: int, m: int, device=None):
         bad = _unported_axes(cfg)
@@ -149,6 +155,15 @@ class Scheme:
                                           cfg.power_schedule)
         self.p_sched = torch.tensor(self._p_np, dtype=torch.float32,
                                     device=self.device)
+        # the channel scalars enter the round as compares and multiplies:
+        # a grid swaps (G,) stacks onto a copy through with_overrides
+        for name in CHANNEL_SCALARS:
+            setattr(self, name, torch.tensor(
+                np.float32(getattr(cfg, name)), device=self.device))
+        #: run-level keys of the static / gauss_markov gains and of the
+        #: device placement: functions of cfg.seed, not of the round keys
+        self.fading_key = fading.fading_base_key(cfg.seed, self.device)
+        self.geometry_key = geometry.geometry_base_key(cfg.seed, self.device)
 
     def init_state(self, d: Optional[int] = None) -> torch.Tensor:
         """Per-device error accumulator Delta_m(0) = 0 (paper Alg. 1)."""
@@ -186,13 +201,67 @@ class Scheme:
             p = p[..., None]
         return p * p_factor
 
-    def channel_draw(self, key: torch.Tensor, step, m: int) -> ChannelDraw:
-        """One round's channel realisation: on the AWGN MAC every device
-        transmits at full power (the fading and geometry draws, which use
-        ``key``, are not ported yet)."""
-        return ChannelDraw(
-            torch.ones((m,), dtype=torch.float32, device=self.device),
-            torch.ones((m,), dtype=torch.bool, device=self.device))
+    # ----------------------------------------------------- fading hooks
+    @cached_property
+    def fading_spec(self) -> fading.FadingSpec:
+        """Static channel-model description (process, window, antennas),
+        tagged with this scheme's CSI model."""
+        return dataclasses.replace(fading.spec_from_cfg(self.cfg),
+                                   csi=self.csi)
+
+    def gains(self, key: torch.Tensor, step, m: int):
+        """Complex gains (re, im) for this round under cfg.fading_process;
+        ``(..., m)`` each for keys ``(..., 2)`` or a ``(G,)`` rho."""
+        return fading.process_gains(self.fading_spec, self.fading_key, key,
+                                    step, m, rho=self.fading_rho)
+
+    def device_factors(self, key: torch.Tensor, m: int):
+        """(received-power factor, participation mask) per device."""
+        return (torch.ones((m,), dtype=torch.float32, device=self.device),
+                torch.ones((m,), dtype=torch.bool, device=self.device))
+
+    # --------------------------------------------------- geometry hooks
+    @property
+    def geometry_on(self) -> bool:
+        """Static gate of the geometry composition: with ``"none"`` no
+        geometry op runs."""
+        return self.cfg.geometry != "none"
+
+    @cached_property
+    def geometry_spec(self) -> geometry.GeometrySpec:
+        """Static cell-geometry description (placement model, antennas)."""
+        return geometry.spec_from_cfg(self.cfg)
+
+    def geometry_gains(self, m: int) -> torch.Tensor:
+        """``(m,)`` run-constant large-scale gains of the device placement,
+        ``(G, m)`` for a ``(G,)`` radius or path-loss exponent."""
+        return geometry.large_scale_gains(
+            self.geometry_key, m, self.cell_radius, self.path_loss_exp,
+            self.geometry_spec)
+
+    def small_scale_draw(self, key: torch.Tensor, step, m: int,
+                         mask=None) -> ChannelDraw:
+        """The small-scale (fading, CSI) part of the round's realisation;
+        channel-aware schemes override this hook."""
+        p_factor, active = self.device_factors(key, m)
+        return ChannelDraw(p_factor, active)
+
+    def channel_draw(self, key: torch.Tensor, step, m: int,
+                     mask=None) -> ChannelDraw:
+        """One round's channel realisation, the hook the rounds call.
+
+        The scheme's :meth:`small_scale_draw` with the run-constant
+        geometry gains composed onto its power factor when
+        ``cfg.geometry`` is on.  ``key`` is the fading-salted round key
+        (``fold_in(round_key, 2)``), ``(G, 2)`` for G points; ``mask``
+        (``(..., m)`` bool) marks the devices that exist, which draws that
+        couple devices (the blind PS combiner) must respect.
+        """
+        draw = self.small_scale_draw(key, step, m, mask=mask)
+        if self.geometry_on:
+            draw = draw._replace(
+                p_factor=draw.p_factor * self.geometry_gains(m))
+        return draw
 
     def silent_state(self, g, state, new_state):
         """Error state of a non-participating device."""
@@ -295,6 +364,80 @@ class ADSGDScheme(Scheme):
     def silent_state(self, g, state, new_state):
         # a device that could not transmit banks its whole update
         return (g + state).to(new_state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# A-DSGD over fading MACs (follow-ups 1907.09769 / 1907.03909): truncated
+# inversion under perfect / estimated CSI, and CSI-free blind transmission
+# ---------------------------------------------------------------------------
+
+
+@register_scheme("a_dsgd_fading")
+class ADSGDFadingScheme(ADSGDScheme):
+    """A-DSGD under Rayleigh fading with truncated channel inversion
+    (perfect CSI): devices below the fade threshold stay silent and bank
+    their whole update; the rest pre-invert, so the usable received power
+    is ``P_t * h_m**2``.  The gain process comes from ``cfg.fading_process``.
+    """
+
+    def device_factors(self, key, m):
+        h = channel.rayleigh_gains(key, m)
+        return channel.truncated_inversion_power(h, self.fading_threshold)
+
+    def small_scale_draw(self, key, step, m, mask=None):
+        re, im = self.gains(key, step, m)
+        h = fading.magnitude(re, im)
+        p_factor, active = channel.truncated_inversion_power(
+            h, self.fading_threshold)
+        return ChannelDraw(p_factor, active)
+
+
+@register_scheme("a_dsgd_csi_err")
+class ADSGDCSIErrScheme(ADSGDFadingScheme):
+    """Truncated inversion driven by a noisy CSI estimate ``h_hat = h + e``,
+    ``e ~ CN(0, csi_err_var)``: the truncation and the power budget follow
+    ``|h_hat|``, and the frame arrives scaled by ``Re(h / h_hat)``.  At
+    ``csi_err_var == 0`` every quantity is bitwise
+    :class:`ADSGDFadingScheme`'s."""
+
+    csi = "noisy"
+
+    def small_scale_draw(self, key, step, m, mask=None):
+        re, im = self.gains(key, step, m)
+        est_re, est_im = fading.csi_estimate(re, im, rng.fold_in(key, 3),
+                                             self.csi_err_var)
+        h_est = fading.magnitude(est_re, est_im)
+        p_factor, active = channel.truncated_inversion_power(
+            h_est, self.fading_threshold)
+        gain = fading.misalignment_gain(re, im, est_re, est_im,
+                                        self.csi_err_var)
+        return ChannelDraw(p_factor, active, gain=gain)
+
+
+@register_scheme("a_dsgd_blind")
+class ADSGDBlindScheme(ADSGDScheme):
+    """A-DSGD with blind transmitters (no CSI at the devices): every device
+    sends its plain power-scaled frame, and the PS's K antennas combine the
+    superposed observations (:func:`fading.blind_combiner_stats`).  Each
+    frame carries a per-device gain and the AWGN variance is scaled by the
+    combiner's noise enhancement; the decode is untouched."""
+
+    csi = "none"
+
+    def small_scale_draw(self, key, step, m, mask=None):
+        k_ant = self.fading_spec.ps_antennas
+        re, im = self.gains(key, step, m * k_ant)
+        re = re.reshape(*re.shape[:-1], m, k_ant)
+        im = im.reshape(*im.shape[:-1], m, k_ant)
+        if mask is not None:
+            # devices that do not exist must not enter the combiner
+            live = mask.to(re.dtype)[..., None]
+            re, im = re * live, im * live
+        gain, noise_scale = fading.blind_combiner_stats(re, im)
+        return ChannelDraw(
+            torch.ones((m,), dtype=torch.float32, device=self.device),
+            torch.ones((m,), dtype=torch.bool, device=self.device),
+            gain=gain, noise_scale=noise_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +561,7 @@ def round_sigma2(scheme: Scheme, draw: ChannelDraw):
     enhancement when it carries one."""
     if draw.noise_scale is None:
         return scheme.cfg.sigma2
-    return scheme.cfg.sigma2 * draw.noise_scale
+    return float(np.float32(scheme.cfg.sigma2)) * draw.noise_scale
 
 
 def encode_round(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
@@ -437,7 +580,7 @@ def encode_round(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
         grads, deltas, step, dev_keys, ctx.with_p_factor(draw.p_factor))
     if scheme.analog:
         frames = apply_channel_gain(frames, draw)
-        new_deltas = torch.where(draw.active[:, None], new_deltas,
+        new_deltas = torch.where(draw.active[..., None], new_deltas,
                                  scheme.silent_state(grads, deltas,
                                                      new_deltas))
         y = channel.mac_sum(frames, rng.fold_in(key, 0),
@@ -461,10 +604,11 @@ def round_simulated(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
                                                 step, key, ctx)
     ghat = scheme.decode(y, step, ctx)
     metrics = {k: metric_mean(v) for k, v in metrics.items()}
-    metrics["active_frac"] = draw.active.float().mean().expand(
-        ghat.shape[:-1])
+    # each point's own mean, whether the draw is shared or per point
+    lead = ghat.shape[:-1]
+    metrics["active_frac"] = draw.active.float().mean(dim=-1).expand(lead)
     if draw.gain is not None:
-        metrics["chan_gain"] = draw.gain.mean()
+        metrics["chan_gain"] = draw.gain.mean(dim=-1).expand(lead)
     if draw.noise_scale is not None:
-        metrics["noise_scale"] = draw.noise_scale
+        metrics["noise_scale"] = draw.noise_scale.expand(lead)
     return ghat, new_deltas, metrics

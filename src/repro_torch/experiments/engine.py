@@ -30,12 +30,14 @@ the digital schemes' static ``q_max``.  ``torch.func.vmap`` cannot trace
 the kernels' ``ctypes`` launches, so the batch is written out.  Each point
 equals its own run (:mod:`repro_torch.experiments.sweep` builds the grids).
 
-Ported: the AWGN MAC with the ``ideal``, ``a_dsgd`` and digital schemes,
-the schedule overrides ``p_sched`` and ``q_sched``, and the identity local
-work.  Guardrails, the channel, robustness and local-compute overrides,
-the ``mac`` / ``fault`` / ``sched`` hooks of :func:`round_masked` and any
-local work but one plain SGD step raise ``NotImplementedError``; none of
-them quietly takes another path.
+Ported: every scheme of :mod:`repro_torch.core.schemes` with the channel
+axes, the schedule overrides ``p_sched`` and ``q_sched``, the six channel
+scalars as overrides (0-dim for a run, ``(G,)`` for a grid), the subband
+scheduler with its carried state, and the identity local work.
+Guardrails, the robustness and local-compute overrides, the ``mac`` /
+``fault`` hooks of :func:`round_masked` and any local work but one plain
+SGD step raise ``NotImplementedError``; none of them quietly takes another
+path.
 """
 from __future__ import annotations
 
@@ -50,10 +52,10 @@ import torch
 from repro_torch import rng
 from repro_torch.configs.base import OTAConfig
 from repro_torch.convert import ravel, unravel
-from repro_torch.core import channel
+from repro_torch.core import channel, scheduling
 from repro_torch.core.schemes import (
-    MACContext, Scheme, apply_channel_gain, get_scheme, round_sigma2,
-    round_simulated,
+    CHANNEL_SCALARS, MACContext, Scheme, apply_channel_gain, get_scheme,
+    round_sigma2, round_simulated,
 )
 from repro_torch.device import resolve_device
 from repro_torch.optim.optim import Optimizer
@@ -67,18 +69,18 @@ from repro_torch.train.paper_repro import (
 #: seed replicas draw disjoint keys)
 KEY_STREAM_BASE = 1000
 
-#: the overrides a run accepts: the per-point schedules of the sweeps
-OVERRIDE_ATTRS = ("p_sched", "q_sched")
+#: the channel-model scalars (fading, CSI error, geometry, scheduling),
+#: one float32 each on the scheme
+CHANNEL_OVERRIDE_ATTRS = CHANNEL_SCALARS
+#: the overrides a run accepts: the per-point schedules of the sweeps and
+#: the channel scalars
+OVERRIDE_ATTRS = ("p_sched", "q_sched") + CHANNEL_OVERRIDE_ATTRS
 #: the reference's other overrides, one traced scalar each, which need axes
-#: not ported yet: the channel-model scalars (fading, CSI error, geometry,
-#: scheduling), the fault and robustness rates, the local-compute knobs
-CHANNEL_OVERRIDE_ATTRS = ("csi_err_var", "fading_threshold", "fading_rho",
-                          "cell_radius", "path_loss_exp", "n_subbands")
+#: not ported yet: the fault and robustness rates, the local-compute knobs
 ROBUST_OVERRIDE_ATTRS = ("byzantine_frac", "fault_rate", "erasure_prob",
                          "byz_scale", "trim_frac", "norm_cap", "power_cap")
 LOCAL_OVERRIDE_ATTRS = ("local_epochs", "prox_mu", "dyn_alpha")
-UNPORTED_OVERRIDE_ATTRS = (CHANNEL_OVERRIDE_ATTRS + ROBUST_OVERRIDE_ATTRS
-                           + LOCAL_OVERRIDE_ATTRS)
+UNPORTED_OVERRIDE_ATTRS = ROBUST_OVERRIDE_ATTRS + LOCAL_OVERRIDE_ATTRS
 
 
 def round_keys(steps: int, seed: int = 0, device=None) -> torch.Tensor:
@@ -141,15 +143,18 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     against ``m_eff = max(sum(mask), 1)``.  The RNG layout matches
     ``round_simulated`` at ``M = M_pad``, so an all-ones mask reproduces it
     bitwise.  ``dev_keys`` (M_pad, 2) and ``draw`` replace the key split and
-    the channel draw, as in the reference; its ``mac``, ``fault`` and
-    ``sched`` hooks, robust aggregation and the transmit power cap are not
-    ported yet and raise.
+    the channel draw, as in the reference; the channel draw sees the mask,
+    so the blind PS combiner excludes devices that do not exist.  ``sched``
+    (M_pad,) bool is the subband scheduler's transmit set: an unscheduled
+    device is silenced like a deep-faded one and banks its whole update.
+    The ``mac`` and ``fault`` hooks, robust aggregation and the transmit
+    power cap are not ported yet and raise.
 
     G points at once: grads/deltas (G, M_pad, d), one key per point (G, 2)
     and one mask per point (G, M_pad); each point decodes against its own
     ``m_eff``.
     """
-    for name, hook in (("mac", mac), ("fault", fault), ("sched", sched)):
+    for name, hook in (("mac", mac), ("fault", fault)):
         if hook is not None:
             raise NotImplementedError(
                 f"round_masked: the {name!r} hook is not ported yet")
@@ -166,12 +171,16 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     if dev_keys is None:
         dev_keys = rng.split(rng.fold_in(key, 1), m_pad)
     if draw is None:
-        draw = scheme.channel_draw(rng.fold_in(key, 2), step, m_pad)
+        draw = scheme.channel_draw(rng.fold_in(key, 2), step, m_pad,
+                                   mask=mask_b)
+    if sched is not None:
+        # the scheduler's transmit set composes like a deep fade
+        draw = draw._replace(active=draw.active & sched)
     active = draw.active
     frames, new_deltas, metrics = scheme.encode(
         grads, deltas, step, dev_keys, ctx.with_p_factor(draw.p_factor))
     if scheme.analog:
-        new_deltas = torch.where(active[:, None], new_deltas,
+        new_deltas = torch.where(active[..., None], new_deltas,
                                  scheme.silent_state(grads, deltas,
                                                      new_deltas))
         active = active & mask_b
@@ -179,8 +188,15 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
         y = channel.mac_sum(frames, rng.fold_in(key, 0),
                             round_sigma2(scheme, draw))
     else:
+        if sched is not None:
+            # an unscheduled digital device knows it was not granted a
+            # subband and banks its whole update
+            new_deltas = torch.where(
+                sched[..., None], new_deltas,
+                scheme.silent_state(grads, deltas, new_deltas))
         active = active & mask_b
-        y = (frames * mask_b[..., None]).sum(dim=-2)
+        keep = active if sched is not None else mask_b
+        y = (frames * keep[..., None]).sum(dim=-2)
     # padded devices do not exist: their error state must not evolve
     new_deltas = torch.where(mask_b[..., None], new_deltas, deltas)
     ghat = scheme.decode(y, step, ctx)
@@ -217,8 +233,10 @@ class CompiledExperiment:
 
     :meth:`run_segment` is the segment contract the checkpoint driver
     needs: rounds ``t0 .. t0 + len(keys)`` from an explicit carry
-    ``(params, opt_state, deltas, momenta)``.  ``overrides`` swaps
-    schedules onto the scheme (``p_sched`` (T,), ``q_sched`` (T,)) through
+    ``(params, opt_state, deltas, momenta)``, followed by prop_fair's
+    ``(M,)`` scheduler state when the configuration schedules with it (the
+    reference's carry).  ``overrides`` swaps schedules (``p_sched`` (T,),
+    ``q_sched`` (T,)) and 0-dim channel scalars onto the scheme through
     :meth:`Scheme.with_overrides`.  :meth:`run_grid` runs G points, each
     with its own ``(T,)`` schedules, keys and mask, as one batched round
     per step.
@@ -243,6 +261,8 @@ class CompiledExperiment:
         self.params0 = init_linear(dim, n_classes, self.device)
         self.d = ravel(self.params0).shape[0]
         self.scheme = get_scheme(cfg, self.d, m, device=self.device)
+        # "none" resolves to None: no scheduling op runs
+        self.scheduler = scheduling.get_scheduler(cfg)
         self.opt = Optimizer(name=exp.optimizer, lr=exp.lr)
         dev = self.device
         self.xd = torch.as_tensor(x_dev, dtype=torch.float32, device=dev)
@@ -252,17 +272,28 @@ class CompiledExperiment:
         self.ctx = MACContext(m=m, use_kernel=exp.use_kernel or cfg.use_kernel)
 
     # ------------------------------------------------------------- pieces
+    @property
+    def _sched_state(self) -> bool:
+        """Whether a scheduler state vector rides the carry (after the
+        deltas and momenta)."""
+        return self.scheduler is not None and self.scheduler.has_state
+
     def carry0(self):
         zeros = torch.zeros((self.m, self.d), dtype=torch.float32,
                             device=self.device)
-        return (self.params0, self.opt.init(self.params0), zeros,
-                zeros.clone())
+        carry = (self.params0, self.opt.init(self.params0), zeros,
+                 zeros.clone())
+        if self._sched_state:
+            carry = carry + (self.scheduler.init_state(self.m, self.device),)
+        return carry
 
     #: the reference's name for :meth:`carry0`
     _carry0 = carry0
 
     def _scheme_for(self, overrides: Dict[str, Any]) -> Scheme:
-        """The scheme with the run's schedule overrides swapped on."""
+        """The scheme with the run's overrides swapped on; a channel scalar
+        becomes a float32 tensor on the run's device."""
+        overrides = dict(overrides)
         for name in overrides:
             if name in UNPORTED_OVERRIDE_ATTRS:
                 raise NotImplementedError(
@@ -272,6 +303,9 @@ class CompiledExperiment:
                 raise AttributeError(
                     f"scheme {self.scheme.name!r} has no attribute {name!r} "
                     "to override")
+            if name in CHANNEL_OVERRIDE_ATTRS:
+                overrides[name] = torch.as_tensor(
+                    overrides[name], dtype=torch.float32, device=self.device)
         return (self.scheme.with_overrides(**overrides) if overrides
                 else self.scheme)
 
@@ -279,11 +313,32 @@ class CompiledExperiment:
         """One round of one point, or of G points when the carry, ``key``
         (G, 2), ``mask`` (G, M_pad) and the scheme's schedules carry a
         leading point axis: the same code either way."""
-        params, opt_state, deltas, momenta = carry
+        params, opt_state, deltas, momenta = carry[:4]
+        sstate = carry[4] if self._sched_state else None
         grads, momenta = device_grads(
             params, self.xd, self.yd, momenta,
             momentum_correction=self.exp.momentum_correction)
-        if mask is None:
+        if self.scheduler is not None:
+            # the scheduler ranks on this round's received-power factors, so
+            # the channel draw is made here, the one round_masked would make
+            # (same salt, same mask), and passed on with the transmit set
+            rmask = (mask if mask is not None else torch.ones(
+                (*key.shape[:-1], self.m), dtype=torch.float32,
+                device=self.device))
+            rmask_b = rmask > 0
+            draw = sch.channel_draw(rng.fold_in(key, 2), t, self.m,
+                                    mask=rmask_b)
+            sched, new_sstate = scheduling.schedule(
+                self.scheduler, rng.fold_in(key, scheduling.SALT_SCHED), t,
+                draw.p_factor, sch.n_subbands, state=sstate, mask=rmask_b)
+            if self._sched_state:
+                # a padded device's scheduler state must not evolve
+                sstate = (new_sstate if mask is None else
+                          torch.where(rmask_b, new_sstate, sstate))
+            ghat, deltas, met = round_masked(sch, grads, deltas, t, key,
+                                             rmask, self.ctx, draw=draw,
+                                             sched=sched)
+        elif mask is None:
             ghat, deltas, met = round_simulated(sch, grads, deltas, t, key,
                                                 self.ctx)
         else:
@@ -295,7 +350,10 @@ class CompiledExperiment:
         out = {"acc": accuracy(params, self.xt, self.yt),
                "loss": ce_loss(params, self.xt, self.yt),
                "metrics": met}
-        return (params, opt_state, deltas, momenta), out
+        carry = (params, opt_state, deltas, momenta)
+        if self._sched_state:
+            carry = carry + (sstate,)
+        return carry, out
 
     # ---------------------------------------------------------- entry
     def run_segment(self, overrides: Dict[str, Any], keys: torch.Tensor,
@@ -339,7 +397,11 @@ class CompiledExperiment:
                   for k, v in self.params0.items()}
         zeros = torch.zeros((points, self.m, self.d), dtype=torch.float32,
                             device=self.device)
-        return params, self.opt.init(params), zeros, zeros.clone()
+        carry = (params, self.opt.init(params), zeros, zeros.clone())
+        if self._sched_state:
+            carry = carry + (self.scheduler.init_state(
+                self.m, self.device).expand(points, self.m).clone(),)
+        return carry
 
     def run_grid(self, overrides: Dict[str, Any], keys: torch.Tensor,
                  masks: Optional[torch.Tensor] = None):
@@ -348,7 +410,8 @@ class CompiledExperiment:
 
         ``overrides`` holds ``(G, T)`` schedules (``p_sched``, and
         ``q_sched`` for the digital schemes, whose static ``q_max`` the
-        caller sets to cover the grid), ``keys`` is ``(G, T, 2)`` and
+        caller sets to cover the grid) and ``(G,)`` channel scalars,
+        ``keys`` is ``(G, T, 2)`` and
         ``masks`` an optional ``(G, M_pad)``.  Each point equals its own
         :meth:`run` (or :meth:`run_masked`) with its own schedules, keys
         and mask.  Returns ``{"acc": (G, T), "loss": (G, T), "metrics":

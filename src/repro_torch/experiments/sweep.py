@@ -16,6 +16,14 @@ Batched axes (``VMAP_AXES``, the reference's name):
                                            M_pad padded devices
                                            (:func:`engine.round_masked`)
 
+plus the channel-model scalars (``SCALAR_VMAP_AXES``): ``csi_err_var``,
+``fading_threshold``, ``fading_rho``, ``cell_radius``, ``path_loss_exp``
+and ``n_subbands``, each a ``(G,)`` stack of per-point values swapped onto
+the scheme (a multiply or compare inside the channel draw or the subband
+cutoff).  ``fading_process``, ``fading_window``, ``ps_antennas``,
+``geometry``, ``scheduler`` and ``pf_horizon`` select structure and stay
+static axes.
+
 Everything else (``scheme``, ``s_frac``, ``k_frac``, ``projection``,
 ``amp_iters``, ``sigma2``, ...) is an ``OTAConfig`` field swept statically:
 the grid is grouped by static combination, one runner per group, and the
@@ -24,11 +32,11 @@ budget ``q_t`` is host-precomputed per grid point and batched beside the
 power schedule; the static ``q_max`` bound is shared across the grid (the
 q-th value of a top-k does not depend on how many values it computes).
 
-The reference's other batched axes -- the channel scalars
-(``SCALAR_VMAP_AXES``), the robustness rates (``ROBUST_VMAP_AXES``) and the
-local-compute knobs (``LOCAL_VMAP_AXES``) -- and the population engine's
-:func:`run_population_sweep` need parts that are not ported yet: they are
-named here and raise ``NotImplementedError``.
+The reference's other batched axes -- the robustness rates
+(``ROBUST_VMAP_AXES``) and the local-compute knobs (``LOCAL_VMAP_AXES``) --
+and the population engine's :func:`run_population_sweep` need parts that
+are not ported yet: they are named here and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,10 +61,12 @@ from repro_torch.experiments.engine import (
 #: axes realised as per-point arrays of one batched round
 VMAP_AXES = ("p_avg", "power_schedule", "seed", "m_active")
 
-#: the reference's batched channel-model scalars (fading, CSI error,
-#: geometry, scheduling), robustness rates and local-compute knobs, each a
-#: scheme override of the same name: not ported yet
+#: the channel-model scalars (fading, CSI error, geometry, scheduling), each
+#: a (G,) scheme override of the same name in one batched round
 SCALAR_VMAP_AXES = CHANNEL_OVERRIDE_ATTRS
+
+#: the reference's batched robustness rates and local-compute knobs, each a
+#: scheme override of the same name: not ported yet
 ROBUST_VMAP_AXES = ROBUST_OVERRIDE_ATTRS
 LOCAL_VMAP_AXES = LOCAL_OVERRIDE_ATTRS
 
@@ -86,7 +96,7 @@ class SweepResult:
 
 def _validate_axes(axes: Dict[str, Sequence], base: OTAConfig) -> None:
     cfg_fields = {f.name for f in dataclasses.fields(OTAConfig)}
-    vmapped = VMAP_AXES + UNPORTED_OVERRIDE_ATTRS
+    vmapped = VMAP_AXES + SCALAR_VMAP_AXES + UNPORTED_OVERRIDE_ATTRS
     for name, values in axes.items():
         if name not in vmapped and name not in cfg_fields:
             raise KeyError(
@@ -97,15 +107,16 @@ def _validate_axes(axes: Dict[str, Sequence], base: OTAConfig) -> None:
     for name in axes:
         if name in UNPORTED_OVERRIDE_ATTRS:
             raise NotImplementedError(
-                f"sweep axis {name!r} is not ported yet (its channel, "
-                "robustness or local-compute axis is not)")
+                f"sweep axis {name!r} is not ported yet (its robustness or "
+                "local-compute axis is not)")
 
 
 def grid_inputs(ce: CompiledExperiment, grid: List[Dict[str, Any]],
                 steps: int, seed: int = 0, masked: bool = False):
     """The per-point inputs of :meth:`CompiledExperiment.run_grid` for the
-    batched points ``grid`` (dicts of ``VMAP_AXES`` values) of one static
-    group: ``(overrides, keys, masks)``, on the runner's device.
+    batched points ``grid`` (dicts of ``VMAP_AXES`` and ``SCALAR_VMAP_AXES``
+    values) of one static group: ``(overrides, keys, masks)``, on the
+    runner's device.
 
     Each point's power schedule, and for a digital scheme its q_t schedule
     built with the point's effective device count, are host-precomputed; the
@@ -129,6 +140,11 @@ def grid_inputs(ce: CompiledExperiment, grid: List[Dict[str, Any]],
         if masked:
             mask_rows.append((np.arange(m_pad) < m_eff).astype(np.float32))
     overrides = {"p_sched": torch.from_numpy(np.stack(p_rows)).to(dev)}
+    for name in SCALAR_VMAP_AXES:
+        if name in grid[0]:
+            overrides[name] = torch.tensor(
+                np.asarray([point[name] for point in grid], np.float32),
+                device=dev)
     if digital:
         q_grid = np.stack(q_rows)
         ce.scheme.q_max = int(max(int(q_grid.max()), 1))
@@ -161,8 +177,9 @@ def run_sweep(dev_data, test_data, base: OTAConfig,
     if masked and max(axes["m_active"]) > m_pad:
         raise ValueError(f"m_active values must be <= M_pad = {m_pad}")
 
-    static_names = [k for k in axes if k not in VMAP_AXES]
-    vmap_names = [k for k in axes if k in VMAP_AXES]
+    batched = VMAP_AXES + SCALAR_VMAP_AXES
+    static_names = [k for k in axes if k not in batched]
+    vmap_names = [k for k in axes if k in batched]
     records: List[Dict[str, Any]] = []
     t0 = time.time()
 

@@ -78,8 +78,20 @@ def _cipher(key: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
     return threefry2x32(key[..., 0:1], key[..., 1:2], x1, x2)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: a new key from ``key`` and a 32-bit salt."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: a new key from ``key`` and a 32-bit salt.
+
+    ``data`` is an ``int`` or an integer tensor of salts: a tensor of shape
+    ``S`` folds every salt into every key in one set of launches and gives
+    ``(..., *S, 2)``, the keys that ``fold_in`` of each salt alone gives
+    (``jax.vmap(fold_in, (None, 0))``).
+    """
+    if isinstance(data, torch.Tensor):
+        salts = data.to(device=key.device, dtype=torch.int64) & MASK32
+        y1, y2 = _cipher(key, torch.zeros_like(salts).reshape(-1),
+                         salts.reshape(-1))
+        return torch.stack([y1, y2], dim=-1).reshape(
+            *key.shape[:-1], *salts.shape, 2)
     zero = torch.zeros((1,), dtype=torch.int64, device=key.device)
     y1, y2 = _cipher(key, zero, zero + (int(data) & MASK32))
     return torch.cat([y1, y2], dim=-1)
@@ -113,16 +125,38 @@ def _as_f32(words: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.int32).view(torch.float32)
 
 
-def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 fused multiply-add, as XLA contracts ``a*b + c``.
+def _two_sum(a: torch.Tensor, b):
+    """``(s, e)`` with ``s = fl(a + b)`` and ``a + b = s + e`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
 
-    The float32 product is exact in float64, so only the final sum rounds
-    twice (float64, then float32); that differs from a true fma only when
-    the float64 sum lands on a float32 tie, about once in 2**29 calls.
+
+#: a float64 on a float32 midpoint (a normal float32) has exactly bit 28
+#: set among its low 29 mantissa bits
+_F32_MIDPOINT_MASK, _F32_MIDPOINT_BITS = (1 << 29) - 1, 1 << 28
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 fused multiply-add ``a*b + c`` rounded once, as XLA contracts
+    ``a*b + c`` on the CPU (and as ``__fmaf_rn`` computes it).
+
+    The float32 product is exact in float64, so only the sum rounds.  The
+    float64 sum ``s`` is exact but where it lands on the midpoint of two
+    float32 values (its low 29 mantissa bits ``1 << 28``); there ``s``'s
+    own rounding error (TwoSum, exact in float64) says on which side of
+    the midpoint the true sum lies, and ``s`` moves one float64 ulp that
+    way before it rounds to float32.  An exact midpoint keeps float32's
+    ties-to-even.  Midpoints of float32 subnormals are not detected (XLA
+    flushes those to zero).
     """
     b = b.double() if isinstance(b, torch.Tensor) else b
     c = c.double() if isinstance(c, torch.Tensor) else c
-    return (a.double() * b + c).float()
+    s, err = _two_sum(a.double() * b, c)
+    tie = (s.view(torch.int64) & _F32_MIDPOINT_MASK) == _F32_MIDPOINT_BITS
+    nudge = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                              err))
+    return torch.where(tie & (err != 0), nudge, s).float()
 
 
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
@@ -221,6 +255,191 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
                        log_f32(x + 1.0))
 
 
+# Cephes' expf as XLA's CPU backend emits it for float32 ``exp``: the
+# input clamp, ``log2(e)``, ``log(2)`` in two parts, then the polynomial,
+# lowest degree last
+_EXP_LO = float(np.float32(-87.8))
+_EXP_HI = float(np.float32(88.8))
+_EXP_LOG2E = float(np.float32(1.44269504088896341))
+_EXP_C1 = float(np.float32(0.693359375))
+_EXP_C2 = float(np.float32(-2.12194440e-4))
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as XLA's CPU backend computes it, bit for bit.
+
+    ``x`` is clamped to ``[-87.8, 88.8]``; ``n = floor(x * log2(e) + 1/2)``
+    (clamped to ``[-127, 127]``), ``r = x - n * log(2)`` with ``log(2)`` in
+    two parts, ``exp(r) = 1 + r + r**2 * P(r)`` and the result ``exp(r) *
+    2**n``, every ``a*b + c`` fused.  A result below the smallest normal
+    float32 is flushed to 0, as XLA does; a NaN stays NaN.  Neither ``torch.exp`` nor a float64 exp rounded to
+    float32 gives these bits.
+    """
+    p = [float(np.float32(c)) for c in _EXP_P]
+    v = torch.clamp(x, _EXP_LO, _EXP_HI)
+    fx = torch.floor(fma_f32(v, _EXP_LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma_f32(fx, -_EXP_C1, v)
+    r = fma_f32(fx, -_EXP_C2, r)
+    y = torch.full_like(r, p[0])
+    for c in p[1:]:
+        y = fma_f32(y, r, c)
+    y = fma_f32(y, r * r, r) + 1.0
+    scale = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    # XLA runs with subnormals flushed to zero
+    out = torch.where(out < _MIN_NORMAL_F32, 0.0, out)
+    return torch.where(torch.isnan(x), x, out)
+
+
+# glibc's powf (the FMA build that XLA's CPU backend calls for float32
+# ``pow``): log2(x) from a 16-entry table of (1/c, log2(c)) and a degree-5
+# polynomial, then exp2 from a 32-entry table of 2**(i/32) and a cubic, all
+# in float64 with fused multiply-adds; the constants are glibc's, in C99 hex
+_POWF_LOG2_TAB = (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1.0000000000000p+0", 0.0),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"),
+)
+_POWF_LOG2_POLY = ("0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2",
+                   "0x1.ec70a6ca7baddp-2", "-0x1.7154748bef6c8p-1",
+                   "0x1.71547652ab82bp+0")
+_POWF_EXP2_TAB = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540,
+)
+_POWF_EXP2_SHIFT = "0x1.8p+47"
+_POWF_EXP2_POLY = ("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3",
+                   "0x1.62e42ff0c52d6p-1")
+_POWF_OVERFLOW = 127.99999995700433
+
+
+def _hex(v):
+    return tuple(_hex(u) for u in v) if isinstance(v, tuple) else (
+        float.fromhex(v) if isinstance(v, str) else float(v))
+
+
+_POWF_LOG2_TAB, _POWF_LOG2_POLY, _POWF_EXP2_POLY = (
+    _hex(_POWF_LOG2_TAB), _hex(_POWF_LOG2_POLY), _hex(_POWF_EXP2_POLY))
+_POWF_EXP2_SHIFT = _hex(_POWF_EXP2_SHIFT)
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp's split of a float64 into two halves of 26 bits."""
+    t = a * 134217729.0  # 2**27 + 1
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma_f64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float64 fused multiply-add ``a*b + c`` rounded once, on float64 ops
+    alone (torch has no fma): Dekker's exact product, then the correctly
+    rounded sum of its two parts and ``c`` by rounding to odd (Boldo and
+    Melquiond, "Emulation of FMA and correctly rounded sums", 2008)."""
+    b = torch.as_tensor(b, dtype=torch.float64, device=a.device)
+    c = torch.as_tensor(c, dtype=torch.float64, device=a.device)
+    ph = a * b
+    ahi, alo = _split(a)
+    bhi, blo = _split(b)
+    pl = ((ahi * bhi - ph) + ahi * blo + alo * bhi) + alo * blo
+    uh, ul = _two_sum(pl, c)
+    th, tl = _two_sum(ph, uh)
+    v, err = _two_sum(tl, ul)
+    # round v to odd: an inexact sum with an even last bit moves one ulp
+    # toward the exact sum
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    v = torch.where((err != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+def pow_f32(x: torch.Tensor, y) -> torch.Tensor:
+    """float32 ``x ** y`` as XLA's CPU backend computes it, bit for bit.
+
+    XLA calls glibc's ``powf`` with subnormals flushed to zero; this is that
+    routine's main path on torch float64 ops, which round alike on every
+    device, its fused multiply-adds emulated exactly (:func:`_fma_f64`).  Covered: normal finite ``x`` of either sign (a negative ``x``
+    needs an integer ``y``, else NaN), ``x = 0``, ``x = 1`` and ``y = 0``;
+    results below the smallest normal float32 flush to zero.  Infinite or
+    NaN operands take ``torch.pow``'s IEEE answer.
+    """
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    x, y = torch.broadcast_tensors(x, y)
+    dev = x.device
+    ix = x.view(torch.int32).to(torch.int64) & MASK32
+    ax = ix & 0x7FFFFFFF
+    yd = y.double()
+    y_int = torch.floor(y) == y
+    y_odd = y_int & (torch.fmod(torch.abs(yd), 2.0) == 1.0)
+    neg = ix >= 0x80000000
+    # log2(|x|) for a normal |x|: |x| = 2**k * z, z near the table's c
+    tmp = ax - 0x3F330000
+    i = (tmp >> 19) & 0xF
+    top = tmp & 0xFF800000
+    iz = (ax - top) & MASK32
+    k = torch.where(top >= 1 << 31, top - (1 << 32), top) >> 23
+    tab = torch.tensor(_POWF_LOG2_TAB, dtype=torch.float64, device=dev)
+    invc, logc = tab[i, 0], tab[i, 1]
+    z = iz.to(torch.int32).view(torch.float32).double()
+    r = _fma_f64(z, invc, -1.0)
+    a = _POWF_LOG2_POLY
+    y0 = logc + k.double()
+    r2 = r * r
+    q = _fma_f64(r, a[4], y0)
+    q = _fma_f64(r2, _fma_f64(r, a[2], a[3]), q)
+    logx = _fma_f64(_fma_f64(r, a[0], a[1]), r2 * r2, q)
+    ylogx = yd * logx
+    # exp2(ylogx) = 2**(n/32) * 2**r, r in [-1/64, 1/64]
+    kd = ylogx + _POWF_EXP2_SHIFT
+    ki = kd.view(torch.int64)
+    kd = kd - _POWF_EXP2_SHIFT
+    r = ylogx - kd
+    t = torch.tensor(_POWF_EXP2_TAB, dtype=torch.int64, device=dev)[ki & 31]
+    s = (t + (ki << 47)).view(torch.float64)
+    c = _POWF_EXP2_POLY
+    e = _fma_f64(_fma_f64(r, c[0], c[1]), r * r, _fma_f64(r, c[2], 1.0))
+    out = (e * s).float()
+    out = torch.where(ylogx > _POWF_OVERFLOW, math.inf, out)
+    # underflow (glibc's own branch below -150, the flush above it)
+    out = torch.where((out.abs() < _MIN_NORMAL_F32) | (ylogx <= -150.0),
+                      0.0, out)
+    out = torch.where(neg & y_odd, -out, out)
+    out = torch.where(neg & ~y_int, math.nan, out)
+    # zero, one, y = 0 and the non-finite operands
+    zero = ax == 0
+    at_zero = torch.where(y > 0, torch.where(neg & y_odd, -0.0, 0.0),
+                          math.inf)
+    at_zero = torch.where(y < 0, torch.where(neg & y_odd, -math.inf,
+                                             math.inf), at_zero)
+    out = torch.where(zero, at_zero.to(torch.float32), out)
+    special = ~torch.isfinite(x) | ~torch.isfinite(y)
+    out = torch.where(special, torch.pow(x, y), out)
+    return torch.where((y == 0) | (x == 1.0), 1.0, out)
+
+
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, following XLA's polynomial.
 
@@ -248,3 +467,15 @@ def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """float32 ``jax.random.normal``."""
     u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
     return _SQRT2_F32 * erf_inv(u)
+
+
+def normal_scaled(key: torch.Tensor, shape: Shape, scale: float
+                  ) -> torch.Tensor:
+    """``jax.random.normal(key, shape) * scale`` for a constant ``scale``, as
+    XLA compiles it inside ``jit``: the constant folds into the draw's own
+    ``sqrt(2)``, so the draw is ``erf_inv(u) * f32(sqrt(2) * scale)``, one
+    rounding fewer than ``normal(key, shape) * scale``.  A division by a
+    constant ``c`` compiles as the product with ``f32(1 / c)``."""
+    u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
+    c = float(np.float32(_SQRT2_F32) * np.float32(scale))
+    return erf_inv(u) * c

@@ -150,7 +150,8 @@ def run_federated(x_dev: np.ndarray, y_dev: np.ndarray,
     """Train the paper's model with the given aggregation scheme.
 
     ``device=None`` runs on the card and raises ``RuntimeError`` without
-    one.  ``local_steps > 1`` (FedAvg-style local SGD) is not ported yet.
+    one.  ``local_steps > 1`` (FedAvg-style local SGD) is not ported yet;
+    a subband scheduler raises ``ValueError``, as in the reference.
     ``seed`` only seeds the zero initialisation, as in the reference.
     """
     dev = resolve_device(device)
@@ -161,6 +162,11 @@ def run_federated(x_dev: np.ndarray, y_dev: np.ndarray,
     params = init_linear(dim, n_classes, dev)
     d = ravel(params).shape[0]
     scheme = get_scheme(ota, d, m, device=dev)
+    if ota.scheduler != "none":
+        raise ValueError(
+            "subband scheduling needs carried scheduler state; the looped "
+            "driver has none -- use run_compiled for "
+            f"scheduler={ota.scheduler!r}")
     opt = Optimizer(name=optimizer, lr=lr)
     opt_state = opt.init(params)
     deltas = torch.zeros((m, d), dtype=torch.float32, device=dev)

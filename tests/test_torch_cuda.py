@@ -514,13 +514,24 @@ def _site_case(name, dev):
         proj = DenseProjector(d=D_MODEL, s_tilde=S_TILDE, seed=5)
         return (lambda y: amp.amp_decode(y, proj, iters=20),
                 (randn(G, S_TILDE),))
+    if name in CHANNEL_SITES:
+        return _channel_site(name, dev)
     raise KeyError(name)
+
+
+#: the channel axes' point-axis sites: the Gauss-Markov weights and their
+#: product with the innovations, the blind combiner's sums and products,
+#: the CSI estimate, the geometry gains and the schedule
+CHANNEL_SITES = ("gauss_markov_weights", "gauss_markov_gains",
+                 "blind_combiner", "csi_estimate", "geometry_gains",
+                 "schedule")
 
 
 @pytest.mark.parametrize("name", ["mac_sum", "make_frame_2048",
                                   "make_frame_1962", "frame_power",
                                   "metric_mean", "device_grads",
-                                  "accuracy_and_loss", "dense_amp"])
+                                  "accuracy_and_loss", "dense_amp",
+                                  *CHANNEL_SITES])
 def test_point_axis_site_on_card(dev, name):
     fn, xs = _site_case(name, dev)
     _assert_same(fn(*xs), _lone(fn, *xs))
@@ -576,3 +587,191 @@ def test_point_axis_round_on_card(dev, name, masked):
         assert set(met) == set(met1)
         for k in met1:
             assert torch.equal(met[k][p], met1[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the channel axes on the card
+# ---------------------------------------------------------------------------
+
+
+def _helper_case(name, gen):
+    """``(fn, inputs)`` of one XLA-exact helper of rng.py, on CPU tensors."""
+    from repro_torch import rng
+    cpu = torch.Generator().manual_seed(21)
+    x = torch.randn(3, 200_000, generator=cpu)
+    if name == "fma_f32":
+        # constructed ties (a*b half an ulp of c off by 2**-47) and randoms
+        c = torch.rand(4096, generator=cpu) + 1.0
+        ulp = torch.nextafter(c, torch.full_like(c, 3.0)) - c
+        a = (ulp.double() / 2 * (1 + 2.0 ** -23)).float()
+        b = torch.full_like(c, 1 - 2.0 ** -23)
+        return rng.fma_f32, (torch.cat([x[0], a]), torch.cat([x[1], b]),
+                             torch.cat([x[2], c]))
+    if name == "exp_f32":
+        return rng.exp_f32, (torch.cat([25 * x[0] - 20, 90 * x[1]]),)
+    if name == "pow_f32":
+        rho = torch.rand(2000, 1, generator=cpu) * 2 - 1
+        return (lambda r, y: (rng.pow_f32(r, torch.arange(64.0,
+                                                          device=r.device)),
+                              rng.pow_f32(y.abs() * 3, 5 * y)),
+                (rho, x[0]))
+    if name == "log_f32":
+        return rng.log_f32, (x[0].abs() * 100 + 1e-30,)
+    if name == "fold_in_tensor":
+        key = rng.PRNGKey(17)
+        salts = torch.arange(64, dtype=torch.int64) + (1 << 20) - 7
+        return (lambda s: rng.fold_in(key.to(s.device), s), (salts,))
+    if name == "normal_scaled":
+        key = rng.fold_in(rng.split(rng.PRNGKey(3), 64), 2)
+        return (lambda k: rng.normal_scaled(k, (2, 25), 0.70710677), (key,))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["fma_f32", "exp_f32", "pow_f32", "log_f32",
+                                  "fold_in_tensor", "normal_scaled"])
+def test_xla_helpers_on_card_equal_cpu(dev, name):
+    """Each XLA-exact helper gives the CPU's bits on the card."""
+    fn, xs = _helper_case(name, None)
+    want = fn(*xs)
+    got = fn(*(x.to(dev) for x in xs))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+def _channel_site(name, dev):
+    """``(fn, inputs)`` of one channel point-axis site: a ``(G,)`` scalar or
+    ``(G, ...)`` gains batched, or one point's slice."""
+    from repro_torch import rng
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.core import fading, geometry, scheduling
+    gen = _gen(dev, 13)
+    rho = torch.tensor([0.5, 0.9, 0.95, 0.99], device=dev)
+    if name == "gauss_markov_weights":
+        return (lambda r: fading.gauss_markov_weights(r, 64), (rho,))
+    if name == "gauss_markov_gains":
+        spec = fading.FadingSpec(process="gauss_markov", window=64)
+        fkey = fading.fading_base_key(0, dev)
+        return (lambda r: fading.process_gains(spec, fkey, fkey, 7, M_DEV,
+                                               rho=r), (rho,))
+    if name == "blind_combiner":
+        return (fading.blind_combiner_stats,
+                (torch.randn(G, M_DEV, 32, generator=gen, device=dev),
+                 torch.randn(G, M_DEV, 32, generator=gen, device=dev)))
+    if name == "csi_estimate":
+        re = torch.randn(M_DEV, generator=gen, device=dev)
+        keys = rng.split(rng.PRNGKey(4, dev), G)
+        return (lambda k, v: fading.csi_estimate(re, re * 0.5, k, v),
+                (keys, torch.tensor([0.0, 0.1, 0.4, 0.8], device=dev)))
+    if name == "geometry_gains":
+        spec = geometry.GeometrySpec()
+        key = geometry.geometry_base_key(0, dev)
+        return (lambda r, g: geometry.large_scale_gains(key, M_DEV, r, g,
+                                                        spec),
+                (torch.tensor([100.0, 400.0, 800.0, 1600.0], device=dev),
+                 torch.tensor([2.0, 3.0, 3.0, 3.7], device=dev)))
+    if name == "schedule":
+        sch = scheduling.get_scheduler(OTAConfig(scheduler="prop_fair"))
+        mask = torch.rand(G, M_DEV, generator=gen, device=dev) > 0.2
+        return (lambda g, s, n, mk: scheduling.schedule(
+                    sch, None, 3, g, n, state=s, mask=mk),
+                (torch.rand(G, M_DEV, generator=gen, device=dev) * 3,
+                 torch.rand(G, M_DEV, generator=gen, device=dev),
+                 torch.tensor([1.0, 2.0, 2.0, 5.0], device=dev), mask))
+    raise KeyError(name)
+
+
+CHANNEL_ROUNDS = {
+    "fading_gauss_markov": (dict(scheme="a_dsgd_fading",
+                                 fading_process="gauss_markov",
+                                 fading_window=64),
+                            "fading_rho", (0.5, 0.9, 0.95, 0.99)),
+    "csi_err": (dict(scheme="a_dsgd_csi_err"), "csi_err_var",
+                (0.0, 0.1, 0.4, 0.8)),
+    "fading_threshold": (dict(scheme="a_dsgd_fading"), "fading_threshold",
+                         (0.1, 0.3, 0.6, 0.9)),
+    "blind": (dict(scheme="a_dsgd_blind", ps_antennas=2), "p_avg",
+              (50.0, 200.0, 500.0, 1000.0)),
+    "geometry": (dict(scheme="a_dsgd", fading="rayleigh", geometry="disk",
+                      path_loss_exp=3.0), "cell_radius",
+                 (100.0, 400.0, 800.0, 1600.0)),
+}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", list(CHANNEL_ROUNDS))
+def test_point_axis_channel_round_on_card(dev, name, masked):
+    """One batched channel round at the sweep's shapes, with a ``(G,)``
+    channel scalar (or P-bar for the blind combiner): each point's ghat,
+    error state and metrics are its own round's, bitwise."""
+    from repro_torch import rng
+    from repro_torch.core.schemes import (
+        MACContext, get_scheme, round_simulated,
+    )
+    from repro_torch.experiments.engine import round_masked
+    kw, axis, values = CHANNEL_ROUNDS[name]
+    cfg = dataclasses.replace(_round_cfg("a_dsgd"), **kw)
+    gen = _gen(dev, 17)
+    grads = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    deltas = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    keys = rng.split(rng.PRNGKey(1003, dev), G)
+    masks = (torch.rand(G, M_DEV, generator=gen, device=dev) > 0.3).float()
+    one = [get_scheme(dataclasses.replace(cfg, **{axis: v}), D_MODEL, M_DEV,
+                      device=dev) for v in values]
+    if axis == "p_avg":
+        ov = {"p_sched": torch.stack([s.p_sched for s in one])}
+    else:
+        ov = {axis: torch.stack([getattr(s, axis) for s in one])}
+    grid = one[0].with_overrides(**ov)
+    ctx = MACContext(m=M_DEV, use_kernel=True)
+
+    def round_(sch, g, d, k, mk):
+        if masked:
+            return round_masked(sch, g, d, 1, k, mk, ctx)
+        return round_simulated(sch, g, d, 1, k, ctx)
+
+    gh, dl, met = round_(grid, grads, deltas, keys, masks)
+    for p, sch in enumerate(one):
+        gh1, dl1, met1 = round_(sch, grads[p].clone(), deltas[p].clone(),
+                                keys[p].clone(), masks[p].clone())
+        assert torch.equal(gh[p], gh1) and torch.equal(dl[p], dl1)
+        assert set(met) == set(met1)
+        for k in met1:
+            assert torch.equal(met[k][p], met1[k]), k
+
+
+@pytest.mark.parametrize("axis,values,kw", [
+    ("csi_err_var", [0.0, 0.1, 0.4], dict(scheme="a_dsgd_csi_err")),
+    ("n_subbands", [1.0, 2.0, 3.0],
+     dict(scheme="a_dsgd", fading="rayleigh", geometry="disk",
+          scheduler="prop_fair")),
+])
+def test_channel_grid_equals_run_compiled_on_card(dev, axis, values, kw):
+    """A batched grid of a channel scalar equals each point's own run on
+    the card, accuracies and losses bitwise; the kernels launch once a
+    round for the whole grid."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.experiments import engine, sweep
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    cfg = OTAConfig(s_frac=0.5, k_frac=0.25, p_avg=500.0, total_steps=6,
+                    projection="blocked", block_size=64, use_kernel=True,
+                    amp_iters=6, mean_removal_steps=2, **kw)
+    grid = [{axis: v} for v in values]
+    ce = engine.CompiledExperiment(xd, yd, xte, yte, engine.Experiment(
+        cfg=cfg, steps=6, eval_every=2))
+    ov, keys, _ = sweep.grid_inputs(ce, grid, 6)
+    ops.reset_launches()
+    outs = ce.run_grid(ov, keys)
+    assert ops.launch_counts()["amp_fused"] == 6
+    for g, point in enumerate(grid):
+        one = engine.run_compiled(
+            xd, yd, xte, yte, dataclasses.replace(cfg, **point),
+            steps=6, lr=1e-3, eval_every=1)
+        assert outs["acc"][g].cpu().numpy().tolist() == \
+            one.all_accs.tolist()
+        assert outs["loss"][g].cpu().numpy().tolist() == \
+            one.all_losses.tolist()

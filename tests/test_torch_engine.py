@@ -244,10 +244,11 @@ def test_unported_parts_raise(data, what):
         ce = engine.CompiledExperiment(*data, exp, device="cpu")
         keys = engine.round_keys(1, 0, "cpu")
         if what == "overrides":
-            # the schedules are ported (tests/test_torch_sweep.py); the
-            # channel scalars need the fading axis
-            with pytest.raises(NotImplementedError, match="fading_threshold"):
-                ce.run({"fading_threshold": torch.ones(())}, keys)
+            # the schedules and the channel scalars are ported
+            # (tests/test_torch_sweep.py, tests/test_torch_channel.py); the
+            # robustness rates need the robustness axis
+            with pytest.raises(NotImplementedError, match="byzantine_frac"):
+                ce.run({"byzantine_frac": torch.ones(())}, keys)
         else:
             with pytest.raises(NotImplementedError):
                 engine.round_masked(ce.scheme, torch.zeros(M, ce.d),

@@ -80,18 +80,21 @@ def test_round_metrics(rounds, name):
 
 
 def test_unported_axes_raise_at_construction():
-    for kw in (dict(fading="rayleigh", scheme="a_dsgd_fading"),
-               dict(geometry="disk"), dict(robust=True),
-               dict(scheduler="round_robin"), dict(local="fedavg")):
+    for kw in (dict(robust=True), dict(byzantine_frac=0.1),
+               dict(local="fedavg"), dict(local_epochs=2)):
         with pytest.raises(NotImplementedError):
             ts.get_scheme(TorchOTAConfig(**kw), D, M, device="cpu")
-    for name in ("a_dsgd_csi_err", "a_dsgd_blind"):
-        with pytest.raises(NotImplementedError):
-            ts.get_scheme(TorchOTAConfig(scheme=name), D, M, device="cpu")
-    # the digital baselines are ported: they build
-    for name in ("d_dsgd", "signsgd", "qsgd"):
+    # the digital baselines, the fading schemes, the geometry and the
+    # schedulers are ported: they build
+    for name in ("d_dsgd", "signsgd", "qsgd", "a_dsgd_fading",
+                 "a_dsgd_csi_err", "a_dsgd_blind"):
         assert ts.get_scheme(TorchOTAConfig(scheme=name), D, M,
                              device="cpu").name == name
+    assert ts.get_scheme(TorchOTAConfig(fading="rayleigh"), D, M,
+                         device="cpu").name == "a_dsgd_fading"
+    for kw in (dict(geometry="disk"), dict(scheduler="round_robin"),
+               dict(scheduler="prop_fair", fading="rayleigh")):
+        assert ts.get_scheme(TorchOTAConfig(**kw), D, M, device="cpu")
 
 
 def test_channel_dim_and_k_match_reference():

@@ -195,11 +195,11 @@ def test_sweep_unknown_axis_raises(data):
         run_sweep(*data, _adsgd(), {"m_active": [M + 1]}, steps=2, **CPU)
 
 
-@pytest.mark.parametrize("axis", SCALAR_VMAP_AXES + ROBUST_VMAP_AXES
-                         + LOCAL_VMAP_AXES)
+@pytest.mark.parametrize("axis", ROBUST_VMAP_AXES + LOCAL_VMAP_AXES)
 def test_unported_vmapped_axes_raise(data, axis):
-    """The reference's channel, robustness and local-compute axes keep
-    their names here and raise, naming the axis."""
+    """The reference's robustness and local-compute axes keep their names
+    here and raise, naming the axis (the channel scalars are ported:
+    tests/test_torch_channel.py)."""
     with pytest.raises(NotImplementedError, match=axis):
         run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
 
