@@ -25,7 +25,11 @@ Phases, one JSON line each:
             version and with four G = 1 launches, beside the clusters the
             card holds at once (``cudaOccupancyMaxActiveClusters``); and
             the (G, M) rows a sweep's grid hands ef_sparsify and
-            ota_project, bitwise with G calls of M rows.  Each record times
+            ota_project, bitwise with G calls of M rows; and amp_fused on
+            the observations a poisoned frame leaves (one NaN, +Inf or
+            -Inf in block 0, at G = 1 and in one point of G = 4): the
+            plain version's NaN pattern, its other entries bitwise, every
+            clean block and point bitwise the clean decode.  Each record times
             the kernel four ways:
             ``kernel_ms`` per call (median of single calls between CUDA
             events, Python wrapper included); ``graph_device_ms``, the
@@ -88,12 +92,27 @@ Phases, one JSON line each:
             own runs.  Per config: ms per round of run_compiled timed in
             turns with the AWGN slice's, and for the Gauss-Markov round the
             ms of its RNG draws and of its channel draw;
-9. kernels  the per-kernel record: route, source, the TPU kernel it
+9. robust   the robustness axis at the slice's scale and config: Fig. 11's
+            analog cell (sign-flip attackers at byzantine_frac 0.1, 20x,
+            with and without the transmit power cap at 1.5 P_t), whose
+            byz_frac metric must be the share of the Byzantine set drawn on
+            the CPU and which at byzantine_frac 0 must be the AWGN
+            run_compiled bitwise; NaN frames at fault_rate 0.1 under the
+            round guard, where the skipped rounds must be exactly those the
+            fault draws poison (computed on the CPU) and a checkpointed run
+            stopped at round 10 and resumed must be bitwise; Fig. 11's
+            digital cell (D-DSGD at byzantine_frac 0.3 with the norm cap,
+            and a trimmed mean); and run_sweep over byzantine_frac in {0,
+            0.1, 0.3} x clip_power, two groups of G = 3, each record equal
+            to its own run_compiled and each group launching the three
+            kernels once per batched round.  Per run: ms per round beside
+            the AWGN slice's, timed in turns;
+10. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
-Each path (slice, unfused_decode, engine, sweep, channel) runs with every
-launch count set to 0 just before it and read just after.
+Each path (slice, unfused_decode, engine, sweep, channel, robust) runs with
+every launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -159,7 +178,8 @@ PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
-                "channel": ("ef_sparsify", "ota_project", "amp_fused")}
+                "channel": ("ef_sparsify", "ota_project", "amp_fused"),
+                "robust": ("ef_sparsify", "ota_project", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
 #: point counts at which the point-axis amp_fused is also timed
@@ -180,6 +200,8 @@ CHANNEL_RUNS = {
                                n_subbands=2),
 }
 CHANNEL_CSI_GRID = (0.0, 0.1, 0.4, 0.8)
+#: the robust phase's grid of Byzantine fractions (Fig. 11's axis)
+ROBUST_FRACS = (0.0, 0.1, 0.3)
 CHANNEL_RADII = (100.0, 400.0, 1600.0)
 
 
@@ -585,6 +607,70 @@ def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
                   lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
                                            **kw)),
         bound=bound(4 * (points * n_blocks * (s + c)), n_ops))
+
+
+def same_nonfinite(out, want) -> bool:
+    """The same NaN positions, and the other entries bitwise."""
+    import torch
+    nan = torch.isnan(out)
+    return bool(torch.equal(nan, torch.isnan(want))
+                and torch.equal(out[~nan], want[~nan]))
+
+
+def check_amp_fused_nonfinite(n_blocks: int, c: int, s: int, iters: int,
+                              device, gen, points: int = 4):
+    """amp_fused on observations a poisoned frame leaves: one NaN, or +Inf,
+    or -Inf, in block 0 of y, at G = 1 and in one point of a G-point launch.
+    The kernel must give the plain version's NaN pattern (the whole block),
+    its other entries bitwise, and every other block and point bitwise the
+    decode of the clean y."""
+    import torch
+    from repro_torch.core.amp import amp_blocked_core
+    from repro_torch.kernels import amp_fused, ref
+    seed = 777
+    x = torch.stack([block_sparse(n_blocks, c, s // 8, gen, device)
+                     for _ in range(points)])
+    clean = (ref.ota_project_ref(x, seed, s)
+             + 0.01 * torch.randn(points, n_blocks, s, generator=gen,
+                                  device=device)).contiguous()
+    kw = dict(iters=iters)
+    clean_out = amp_fused.amp_decode_fused(clean, seed, c, **kw)
+    cases = []
+    for value in (float("nan"), float("inf"), float("-inf")):
+        for g in (1, points):
+            yb = (clean[:1].clone() if g == 1 else clean.clone())
+            bad = g // 2                    # the poisoned point
+            yb[bad, 0, s // 3] = value
+            y_in = yb[0] if g == 1 else yb
+            out = amp_fused.amp_decode_fused(y_in, seed, c, **kw)
+            want = amp_blocked_core(y_in, seed, c, use_kernel=False, **kw)
+            torch.cuda.synchronize()
+            out, want = out.reshape(g, n_blocks, c), want.reshape(
+                g, n_blocks, c)
+            check(same_nonfinite(out, want),
+                  f"amp_fused y[{bad}, 0] = {value}, G = {g}: the NaN "
+                  "pattern or the finite entries differ from the plain "
+                  "version")
+            check(bool(torch.isnan(out[bad, 0]).all()),
+                  f"amp_fused y = {value}: the poisoned block is not NaN")
+            keep = torch.ones(g, n_blocks, dtype=torch.bool, device=device)
+            keep[bad, 0] = False
+            check(torch.equal(out[keep], clean_out[:g][keep]),
+                  f"amp_fused y = {value}, G = {g}: a clean block or point "
+                  "changed")
+            cases.append(dict(value=str(value), points=g,
+                              nan_entries=int(torch.isnan(out).sum()),
+                              same_as_plain=True, others_bitwise=True))
+    y_nan = clean[0].clone()
+    y_nan[0, s // 3] = float("nan")
+    return dict(
+        kernel="amp_fused", shape=[n_blocks, s, c], iters=iters,
+        tol="NaN positions equal, finite entries bitwise; clean blocks and "
+            "points bitwise the clean decode", cases=cases,
+        graph_ms_poisoned=graph_ms(lambda: amp_fused.amp_decode_fused(
+            y_nan, seed, c, **kw), n=DECODE_GRAPH_CALLS),
+        graph_ms_clean=graph_ms(lambda: amp_fused.amp_decode_fused(
+            clean[0], seed, c, **kw), n=DECODE_GRAPH_CALLS))
 
 
 def check_point_rows(points: int, m: int, d: int, n_blocks: int, c: int,
@@ -1120,6 +1206,196 @@ def run_channel_phase(data, cfg, device, steps: int = STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the robustness axis
+# ---------------------------------------------------------------------------
+
+
+def expected_skips(cfg, steps: int, m: int) -> list:
+    """The rounds in which some transmitting device's frame is poisoned:
+    the fault draws alone, on the CPU (a function of the RNG)."""
+    from repro_torch import rng
+    from repro_torch.core.schemes import get_scheme
+    from repro_torch.robust import faults
+    scheme = get_scheme(cfg, 7850, m, device="cpu")
+    out = []
+    for t in range(steps):
+        key = rng.fold_in(rng.PRNGKey(1000 + t, device="cpu"),
+                          faults.SALT_FAULT)
+        out.append(float(bool(scheme.fault_draw(key, t, m).poison.any())))
+    return out
+
+
+def run_robust_phase(data, cfg, eng_line, device, steps: int = STEPS,
+                     eval_every: int = 5, stop_at: int = 10):
+    """Fig. 11's analog and digital cells, NaN faults under the round
+    guard, and a robust grid, at the slice's scale and config."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.kernels import ops
+    from repro_torch.robust import GuardConfig, byzantine_set, fault_base_key
+
+    x_dev, y_dev, xte, yte = data
+    m = int(x_dev.shape[0])
+    kw = dict(steps=steps, lr=1e-3, eval_every=eval_every, device=device)
+    total = {}
+
+    def counted(fn, want=steps):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; each path kernel must launch ``want`` times."""
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        for k in PATH_KERNELS["robust"]:
+            check(n[k] == want, f"robust: {k} launched {n[k]} times, "
+                  f"expected {want}")
+        return out, n
+
+    def final(run):
+        check(all(np.isfinite(run.all_losses)),
+              f"robust: non-finite losses {run.losses}")
+        return run.accs[-1]
+
+    analog = dict(scheme="a_dsgd", robust=True, byz_attack="sign_flip",
+                  byz_scale=20.0, power_cap=1.5)
+    runs = {}
+    # (a) Fig. 11's analog cell, the power cap on and off
+    for name, over in (("analog_capped", dict(byzantine_frac=0.1,
+                                              clip_power=True)),
+                       ("analog_uncapped", dict(byzantine_frac=0.1,
+                                                clip_power=False))):
+        c = dataclasses.replace(cfg, **analog, **over)
+        run, n = counted(lambda: engine.run_compiled(*data, c, **kw))
+        runs[name] = dict(config={**analog, **over}, launches=n,
+                          final_acc=final(run), accs=run.accs, run=run,
+                          cfg=c)
+    share = float(byzantine_set(fault_base_key(cfg.seed, "cpu"), m, 0.1)
+                  .to(torch.float32).sum() / m)
+    got = [mt["byz_frac"] for mt in runs["analog_capped"]["run"].metrics]
+    check(all(v == share for v in got),
+          f"robust: byz_frac {got} is not the CPU set's share {share}")
+    check(share > 0, "robust: no Byzantine device at fraction 0.1")
+    c0 = dataclasses.replace(cfg, **analog, byzantine_frac=0.0,
+                             clip_power=True)
+    zero, _ = counted(lambda: engine.run_compiled(*data, c0, **kw))
+    awgn = engine.run_compiled(*data, cfg, **kw)
+    check(awgn.accs == eng_line["accs"] and awgn.losses
+          == eng_line["losses"], "robust: the AWGN run is not the engine "
+          "phase's")
+    check(_same_run(zero, awgn) and all(torch.equal(zero.params[k],
+                                                    awgn.params[k])
+                                        for k in awgn.params),
+          "robust: the capped run at byzantine_frac 0 is not bitwise the "
+          "AWGN run_compiled")
+
+    # (b) NaN frames under the round guard, every round evaluated
+    cb = dataclasses.replace(cfg, scheme="a_dsgd", fault_kind="nan",
+                             fault_rate=0.1)
+    guard = GuardConfig()
+    kb = dict(kw, eval_every=1)
+    run, n = counted(lambda: engine.run_compiled(*data, cb, guard=guard,
+                                                 **kb))
+    skipped = [mt["guard_skipped"] for mt in run.metrics]
+    want = expected_skips(cb, steps, m)
+    check(skipped == want, f"robust: skipped rounds {skipped}, the fault "
+          f"draws poison {want}")
+    check(sum(want) > 0, "robust: no round was poisoned")
+    runs["nan_guarded"] = dict(config=dict(fault_kind="nan", fault_rate=0.1,
+                                           guard="GuardConfig()"),
+                               launches=n, final_acc=final(run),
+                               accs=[run.accs[i] for i in engine.eval_indices(
+                                   steps, eval_every)],
+                               skipped_rounds=[t for t, v in
+                                               enumerate(skipped) if v],
+                               run=run, cfg=cb, guard=guard)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(kb, checkpoint_dir=tmp, checkpoint_every=eval_every,
+                  guard=guard)
+        stopped = engine.run_compiled(*data, cb, stop_after_step=stop_at,
+                                      **ck)
+        check(stopped is None, "robust: the guarded run did not stop")
+        resumed = engine.run_compiled(*data, cb, resume=True, **ck)
+    torch.cuda.synchronize()
+    check(_same_run(resumed, run) and resumed.metrics == run.metrics
+          and all(torch.equal(resumed.params[k], run.params[k])
+                  for k in run.params),
+          "robust: the guarded resume is not bitwise")
+
+    # (c) Fig. 11's digital cell: the norm cap, and a trimmed mean
+    for name, over in (("digital_norm_cap", dict(aggregator="norm_cap",
+                                                 norm_cap=1.5)),
+                       ("digital_trimmed_mean", dict(
+                           aggregator="trimmed_mean", trim_frac=0.1))):
+        c = dataclasses.replace(cfg, scheme="d_dsgd", byzantine_frac=0.3,
+                                byz_scale=20.0, **over)
+        run, n = counted(lambda: engine.run_compiled(*data, c, **kw), 0)
+        runs[name] = dict(config=dict(scheme="d_dsgd", byzantine_frac=0.3,
+                                      **over), launches=n,
+                          final_acc=final(run), accs=run.accs, run=run,
+                          cfg=c)
+
+    # (d) a robust grid: byzantine_frac x clip_power, two groups of G = 3
+    base = dataclasses.replace(cfg, scheme="a_dsgd", byz_scale=20.0,
+                               power_cap=1.5)
+    axes = {"byzantine_frac": list(ROBUST_FRACS),
+            "clip_power": [False, True]}
+    res, n = counted(lambda: sweep.run_sweep(
+        (x_dev, y_dev), (xte, yte), base, axes, steps=steps, lr=1e-3,
+        eval_every=eval_every, device=device), 2 * steps)
+    for rec in res.records:
+        one = engine.run_compiled(*data, dataclasses.replace(
+            base, robust=True, byzantine_frac=rec["byzantine_frac"],
+            clip_power=rec["clip_power"]), **kw)
+        check(rec["accs"] == one.accs and rec["losses"] == one.losses,
+              f"robust grid {rec['byzantine_frac']}, {rec['clip_power']}: "
+              "the record is not its own run_compiled")
+    groups = []
+    grid = [{"byzantine_frac": f} for f in ROBUST_FRACS]
+    for clip in (False, True):
+        exp = engine.Experiment(cfg=dataclasses.replace(
+            base, robust=True, clip_power=clip), steps=steps,
+            eval_every=eval_every)
+        ce = engine.CompiledExperiment(*data, exp, device=device)
+        ov, keys, _ = sweep.grid_inputs(ce, grid, steps)
+        _, gn = counted(lambda: ce.run_grid(ov, keys))
+        groups.append(dict(clip_power=clip, points=len(grid), launches=gn,
+                           ce=ce, ov=ov, keys=keys,
+                           final_accs=[r["final_acc"] for r in res.records
+                                       if r["clip_power"] == clip],
+                           vs_run_compiled="bitwise"))
+
+    # ms per round beside the AWGN slice's, in turns
+    exp0 = engine.Experiment(cfg=cfg, steps=steps, eval_every=eval_every)
+    awgn_ce = engine.CompiledExperiment(*data, exp0, device=device)
+    keys = engine.round_keys(steps, 0, device)
+    for rec in runs.values():
+        rec.pop("run")
+        ce = engine.CompiledExperiment(*data, dataclasses.replace(
+            exp0, cfg=rec.pop("cfg"), guard=rec.pop("guard", None)),
+            device=device)
+        a_ms, r_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                    lambda: ce.run({}, keys), reps=2)
+        rec.update(ms_per_round=r_ms / steps, awgn_ms_per_round=a_ms / steps)
+    for grp in groups:
+        ce, ov, gkeys = grp.pop("ce"), grp.pop("ov"), grp.pop("keys")
+        a_ms, g_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                    lambda: ce.run_grid(ov, gkeys), reps=2)
+        grp.update(ms_per_batched_round=g_ms / steps,
+                   awgn_ms_per_round=a_ms / steps)
+    return dict(
+        phase="robust", steps=steps, m=m, b=int(x_dev.shape[1]), d=7850,
+        config=dict(projection=cfg.projection, block_size=cfg.block_size,
+                    use_kernel=cfg.use_kernel, amp_iters=cfg.amp_iters),
+        launches=total, runs=runs, byz_frac_share=share,
+        zero_frac_capped_is_awgn="bitwise", guarded_resume="bitwise",
+        grid_axes=axes, grid_groups=groups)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1186,11 +1462,13 @@ def main() -> int:
     points = check_amp_fused_points(4, n_blocks, c, s, cfg.amp_iters, device,
                                     gen)
     point_rows = check_point_rows(4, 25, d, n_blocks, c, s, k, device, gen)
+    nonfinite = check_amp_fused_nonfinite(n_blocks, c, s, cfg.amp_iters,
+                                          device, gen)
     for rec in [*main_checks.values(), *extra, points]:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
               other_shapes=extra, point_axis=[points, point_rows],
-              not_ported=[]))
+              nonfinite=nonfinite, not_ported=[]))
 
     data, sl = run_slice(device)
     emit(sl)
@@ -1202,10 +1480,12 @@ def main() -> int:
     emit(sw)
     ch = run_channel_phase(data, cfg, device)
     emit(ch)
+    rb = run_robust_phase(data, cfg, eng, device)
+    emit(rb)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],
-             "channel": ch["launches"]}
+             "channel": ch["launches"], "robust": rb["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]

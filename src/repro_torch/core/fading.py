@@ -19,7 +19,8 @@ each broadcasts against the devices as ``[..., None]``.
 The reference runs these functions inside ``jit``, where XLA's CPU backend
 fuses every ``a*b + c`` into one fused multiply-add and sums a reduction in
 its own order; the port follows both (:func:`repro_torch.rng.fma_f32`,
-:func:`xla_sum`), so the elementwise functions are bitwise the reference's.
+:func:`repro_torch.device.xla_sum`), so the elementwise functions are
+bitwise the reference's.
 The sums and the two products (the Gauss-Markov weights against the
 innovations, the blind combiner's) run as explicit fixed-order loops of
 elementwise ops, so a grid point keeps its own run's bits on the card too.
@@ -33,6 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.device import (  # noqa: F401 (sqrt_f32, xla_sum re-exported)
+    XLA_REDUCE_WINDOW, sqrt_f32, xla_sum,
+)
 
 #: recognised fading processes / CSI models (validated by spec_from_cfg)
 PROCESSES = ("static", "iid", "gauss_markov")
@@ -50,11 +54,6 @@ _STEP_OFFSET = 1 << 20
 _INV_SQRT2_F32 = float(np.float32(1.0) / np.sqrt(np.float32(2.0)))
 
 _MIN_NORMAL_F32 = float(np.finfo(np.float32).tiny)
-
-#: XLA's CPU backend rewrites a reduction longer than this into windows of
-#: this length, summed one after the other
-_XLA_REDUCE_WINDOW = 32
-
 
 @dataclass(frozen=True)
 class FadingSpec:
@@ -87,34 +86,6 @@ def fading_base_key(seed: int, device=None) -> torch.Tensor:
     return rng.PRNGKey(seed ^ FADING_SEED_SALT, device=device)
 
 
-def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt, as XLA computes it (through float64:
-    torch's vectorised float32 sqrt on the CPU misses it by an ulp on some
-    inputs)."""
-    return torch.sqrt(x.double()).float()
-
-
-def xla_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """float32 sum along ``dim`` in the order XLA's CPU backend sums a
-    reduction: one element after another from 0, and a dimension longer
-    than 32 first in windows of 32 (the last one padded with zeros), whose
-    partial sums are then summed the same way.  Elementwise adds only, so
-    every row keeps its bits whatever batch it rides in."""
-    x = x.movedim(dim, 0)
-    n = x.shape[0]
-    if n > _XLA_REDUCE_WINDOW:
-        w = _XLA_REDUCE_WINDOW
-        pad = -n % w
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
-        parts = xla_sum(x.reshape(-1, w, *x.shape[1:]), dim=1)
-        return xla_sum(parts, dim=0)
-    acc = x[0] + 0.0
-    for i in range(1, n):
-        acc = acc + x[i]
-    return acc
-
-
 def complex_normals(key: torch.Tensor, m: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(re, im) of m i.i.d. CN(0,1) draws, ``normal(key, (2, m)) /
@@ -144,13 +115,14 @@ def gauss_markov_weights(rho, window: int) -> torch.Tensor:
     As XLA's CPU backend compiles them: a window of up to 32 is one
     unrolled loop, in which LLVM turns ``pow(rho, 2)`` into ``rho * rho``
     and fuses each square into the running sum; a longer one squares first
-    and sums in windows of 32 (:func:`xla_sum`).  Held bitwise for windows
-    up to 32 and for 64 and 128.
+    and sums in windows of 32, the padding split between the ends
+    (:func:`repro_torch.device.xla_sum`).  Held bitwise for windows of up
+    to 32 and for 33, 48, 64, 96 and 128.
     """
     rho = torch.as_tensor(rho, dtype=torch.float32)
     idx = torch.arange(window, dtype=torch.float32, device=rho.device)
     c = rng.pow_f32(rho[..., None], idx)
-    if window <= _XLA_REDUCE_WINDOW:
+    if window <= XLA_REDUCE_WINDOW:
         if window > 2:
             c = torch.cat([c[..., :2], (rho * rho)[..., None], c[..., 3:]],
                           dim=-1)

@@ -30,10 +30,14 @@ channel axes (fading processes, CSI models, the disk geometry); the
 :func:`round_simulated` driver runs them all.  The channel scalars (``fading_threshold``,
 ``csi_err_var``, ``fading_rho``, ``cell_radius``, ``path_loss_exp``,
 ``n_subbands``) are 0-dim float32 tensors on the scheme's device, ``(G,)``
-in a grid, and every use broadcasts them along the devices.  The
-robustness and local-compute axes are not ported yet: a config that asks
-for one raises when its scheme is built, and never runs the plain path
-silently.
+in a grid, and every use broadcasts them along the devices.  The robustness
+scalars (``ROBUST_SCALARS``: the fault rates, the attack magnitude and the
+defences' trim fraction and caps) are held the same way, and
+:meth:`Scheme.fault_draw` deals a round's faults
+(:mod:`repro_torch.robust.faults`); the fault path itself runs in the
+engine's ``round_masked``.  The local-compute axis is not ported yet: a
+config that asks for it raises when its scheme is built, and never runs the
+plain path silently.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from repro_torch.core.amp import amp_decode
 from repro_torch.core.projection import DenseProjector, make_projector
 from repro_torch.device import div_f32, per_point, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.robust import faults
 
 
 @dataclass(frozen=True)
@@ -93,6 +98,13 @@ NOT_PORTED_SCHEMES: Tuple[str, ...] = ()
 CHANNEL_SCALARS = ("csi_err_var", "fading_threshold", "fading_rho",
                    "cell_radius", "path_loss_exp", "n_subbands")
 
+#: the robustness scalars a scheme carries, one float32 each (a sweep's
+#: ``ROBUST_VMAP_AXES``): the fault rates and attack magnitude, and the
+#: defences' parameters.  Their kinds (``byz_attack``, ``fault_kind``,
+#: ``aggregator``, ``clip_power``) are static config fields
+ROBUST_SCALARS = ("byzantine_frac", "fault_rate", "erasure_prob",
+                  "byz_scale", "trim_frac", "norm_cap", "power_cap")
+
 
 def register_scheme(name: str):
     """Class decorator: register a Scheme subclass under ``name``."""
@@ -126,9 +138,6 @@ def get_scheme(cfg: OTAConfig, d: int, m: int, device=None) -> "Scheme":
 def _unported_axes(cfg: OTAConfig) -> Tuple[str, ...]:
     """The configured axes the port cannot run yet."""
     bad = []
-    if (cfg.robust or cfg.byzantine_frac > 0 or cfg.fault_rate > 0
-            or cfg.erasure_prob > 0):
-        bad.append("robust")
     if cfg.local != "sgd" or cfg.local_epochs != 1:
         bad.append(f"local={cfg.local!r}, local_epochs={cfg.local_epochs}")
     return tuple(bad)
@@ -155,15 +164,18 @@ class Scheme:
                                           cfg.power_schedule)
         self.p_sched = torch.tensor(self._p_np, dtype=torch.float32,
                                     device=self.device)
-        # the channel scalars enter the round as compares and multiplies:
-        # a grid swaps (G,) stacks onto a copy through with_overrides
-        for name in CHANNEL_SCALARS:
+        # the channel and robustness scalars enter the round as compares
+        # and multiplies: a grid swaps (G,) stacks onto a copy through
+        # with_overrides
+        for name in CHANNEL_SCALARS + ROBUST_SCALARS:
             setattr(self, name, torch.tensor(
                 np.float32(getattr(cfg, name)), device=self.device))
-        #: run-level keys of the static / gauss_markov gains and of the
-        #: device placement: functions of cfg.seed, not of the round keys
+        #: run-level keys of the static / gauss_markov gains, of the device
+        #: placement and of the Byzantine set: functions of cfg.seed, not
+        #: of the round keys
         self.fading_key = fading.fading_base_key(cfg.seed, self.device)
         self.geometry_key = geometry.geometry_base_key(cfg.seed, self.device)
+        self.fault_key = faults.fault_base_key(cfg.seed, self.device)
 
     def init_state(self, d: Optional[int] = None) -> torch.Tensor:
         """Per-device error accumulator Delta_m(0) = 0 (paper Alg. 1)."""
@@ -264,8 +276,32 @@ class Scheme:
         return draw
 
     def silent_state(self, g, state, new_state):
-        """Error state of a non-participating device."""
+        """Error state of a non-participating (deep-fade, dropout, or
+        unscheduled) device."""
         return new_state
+
+    # ----------------------------------------------------- fault hooks
+    @property
+    def robust_on(self) -> bool:
+        """Static gate of the fault path: the robust master switch, or any
+        nonzero configured fault rate (a swept rate axis rides
+        ``robust=True``, which the sweep sets)."""
+        cfg = self.cfg
+        return bool(cfg.robust or cfg.byzantine_frac > 0
+                    or cfg.fault_rate > 0 or cfg.erasure_prob > 0)
+
+    def fault_draw(self, key: torch.Tensor, step,
+                   m: int) -> faults.FaultDraw:
+        """One round's fault realisation.  ``key`` is the fault-salted
+        round key (``fold_in(round_key, faults.SALT_FAULT)``), ``(G, 2)``
+        for G points; the rates are this scheme's tensors, so
+        ``with_overrides`` batches them, and the Byzantine set draws from
+        the run-level ``fault_key``."""
+        return faults.fault_draw(self.fault_key, key, m,
+                                 byzantine_frac=self.byzantine_frac,
+                                 fault_rate=self.fault_rate,
+                                 erasure_prob=self.erasure_prob,
+                                 fault_kind=self.cfg.fault_kind)
 
     def encode(self, g: torch.Tensor, state: torch.Tensor, step: int,
                keys: torch.Tensor, ctx: Optional[MACContext] = None):
@@ -498,8 +534,8 @@ class DDSGDScheme(_BitBudgetScheme):
 
     def silent_state(self, g, state, new_state):
         # a D-DSGD device that failed mid-round banks its whole update
-        # (error feedback over the digital link); only fault injection,
-        # not ported yet, selects this
+        # (error feedback over the digital link): a robust dropout, or a
+        # device the scheduler left out
         return (g + state).to(new_state.dtype)
 
 

@@ -1,4 +1,4 @@
-"""Device resolution shared by every entry point of the port.
+"""Device resolution and the fixed-order helpers shared by the port.
 
 ``device=None`` means the card (``torch.device("cuda")``).  Without one the
 entry points raise instead of carrying on on the CPU; tests and other CPU
@@ -85,3 +85,42 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     if x.dim() == 3:
         return per_point(row_sum, x, rank=2)
     return x.sum(dim=-1)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA computes it (through float64:
+    torch's vectorised float32 sqrt on the CPU misses it by an ulp on some
+    inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+#: XLA's CPU backend rewrites a reduction longer than this into windows of
+#: this length, summed one after the other
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """float32 sum along ``dim`` in the order XLA's CPU backend sums a
+    reduction: one element after another from 0, and a dimension longer
+    than 32 first in windows of 32, whose partial sums are then summed the
+    same way.  XLA pads such a dimension to a multiple of 32 with zeros
+    split between its ends, ``pad // 2`` in front and the rest behind (a
+    ``reduce-window`` with ``pad=lo_hi``).  Elementwise adds only, so every
+    row keeps its bits whatever batch it rides in."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n > XLA_REDUCE_WINDOW:
+        w = XLA_REDUCE_WINDOW
+        pad = -n % w
+        if pad:
+            lo = pad // 2
+            x = torch.cat([x.new_zeros((lo, *x.shape[1:])), x,
+                           x.new_zeros((pad - lo, *x.shape[1:]))])
+        parts = xla_sum(x.reshape(-1, w, *x.shape[1:]), dim=1)
+        return xla_sum(parts, dim=0)
+    if n == 1:
+        return x[0]             # XLA drops a reduction over one element
+    acc = x[0] + 0.0
+    for i in range(1, n):
+        acc = acc + x[i]
+    return acc

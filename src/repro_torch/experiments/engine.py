@@ -31,11 +31,14 @@ the kernels' ``ctypes`` launches, so the batch is written out.  Each point
 equals its own run (:mod:`repro_torch.experiments.sweep` builds the grids).
 
 Ported: every scheme of :mod:`repro_torch.core.schemes` with the channel
-axes, the schedule overrides ``p_sched`` and ``q_sched``, the six channel
-scalars as overrides (0-dim for a run, ``(G,)`` for a grid), the subband
-scheduler with its carried state, and the identity local work.
-Guardrails, the robustness and local-compute overrides, the ``mac`` /
-``fault`` hooks of :func:`round_masked` and any local work but one plain
+and robustness axes, the schedule overrides ``p_sched`` and ``q_sched``,
+the six channel scalars and the seven robustness scalars as overrides
+(0-dim for a run, ``(G,)`` for a grid), the subband scheduler with its
+carried state, fault injection, robust aggregation and the transmit power
+cap in :func:`round_masked`, the round guardrails
+(:mod:`repro_torch.robust.guards`) with their state in the carry, and the
+identity local work.  The local-compute overrides, the ``mac`` hook of
+:func:`round_masked` (hierarchical sites) and any local work but one plain
 SGD step raise ``NotImplementedError``; none of them quietly takes another
 path.
 """
@@ -54,11 +57,12 @@ from repro_torch.configs.base import OTAConfig
 from repro_torch.convert import ravel, unravel
 from repro_torch.core import channel, scheduling
 from repro_torch.core.schemes import (
-    CHANNEL_SCALARS, MACContext, Scheme, apply_channel_gain, get_scheme,
-    round_sigma2, round_simulated,
+    CHANNEL_SCALARS, ROBUST_SCALARS, MACContext, Scheme, apply_channel_gain,
+    get_scheme, round_sigma2, round_simulated,
 )
 from repro_torch.device import resolve_device
 from repro_torch.optim.optim import Optimizer
+from repro_torch.robust import aggregators, faults, guards
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.train.paper_repro import (
     accuracy, ce_loss, device_grads, init_linear,
@@ -69,18 +73,19 @@ from repro_torch.train.paper_repro import (
 #: seed replicas draw disjoint keys)
 KEY_STREAM_BASE = 1000
 
-#: the channel-model scalars (fading, CSI error, geometry, scheduling),
-#: one float32 each on the scheme
+#: the channel-model scalars (fading, CSI error, geometry, scheduling) and
+#: the robustness scalars (fault rates, attack magnitude, defences), one
+#: float32 each on the scheme
 CHANNEL_OVERRIDE_ATTRS = CHANNEL_SCALARS
+ROBUST_OVERRIDE_ATTRS = ROBUST_SCALARS
+SCALAR_OVERRIDE_ATTRS = CHANNEL_OVERRIDE_ATTRS + ROBUST_OVERRIDE_ATTRS
 #: the overrides a run accepts: the per-point schedules of the sweeps and
-#: the channel scalars
-OVERRIDE_ATTRS = ("p_sched", "q_sched") + CHANNEL_OVERRIDE_ATTRS
-#: the reference's other overrides, one traced scalar each, which need axes
-#: not ported yet: the fault and robustness rates, the local-compute knobs
-ROBUST_OVERRIDE_ATTRS = ("byzantine_frac", "fault_rate", "erasure_prob",
-                         "byz_scale", "trim_frac", "norm_cap", "power_cap")
+#: the scheme's scalars
+OVERRIDE_ATTRS = ("p_sched", "q_sched") + SCALAR_OVERRIDE_ATTRS
+#: the reference's local-compute knobs, one traced scalar each, whose axis
+#: is not ported yet
 LOCAL_OVERRIDE_ATTRS = ("local_epochs", "prox_mu", "dyn_alpha")
-UNPORTED_OVERRIDE_ATTRS = ROBUST_OVERRIDE_ATTRS + LOCAL_OVERRIDE_ATTRS
+UNPORTED_OVERRIDE_ATTRS = LOCAL_OVERRIDE_ATTRS
 
 
 def round_keys(steps: int, seed: int = 0, device=None) -> torch.Tensor:
@@ -111,7 +116,7 @@ class Experiment:
     momentum_correction: float = 0.0
     seed: int = 0
     use_kernel: bool = False     # the CUDA kernels inside the run
-    guard: Optional[Any] = None  # round guardrails: not ported yet
+    guard: Optional[guards.GuardConfig] = None   # round guardrails
 
 
 @dataclass
@@ -142,27 +147,34 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     zeroed before the MAC sum), keep their error state, and the PS decodes
     against ``m_eff = max(sum(mask), 1)``.  The RNG layout matches
     ``round_simulated`` at ``M = M_pad``, so an all-ones mask reproduces it
-    bitwise.  ``dev_keys`` (M_pad, 2) and ``draw`` replace the key split and
-    the channel draw, as in the reference; the channel draw sees the mask,
-    so the blind PS combiner excludes devices that do not exist.  ``sched``
-    (M_pad,) bool is the subband scheduler's transmit set: an unscheduled
-    device is silenced like a deep-faded one and banks its whole update.
-    The ``mac`` and ``fault`` hooks, robust aggregation and the transmit
-    power cap are not ported yet and raise.
+    bitwise.  ``dev_keys`` (M_pad, 2), ``draw`` and ``fault`` replace the
+    key split, the channel draw and the fault draw, as in the reference;
+    the channel draw sees the mask, so the blind PS combiner excludes
+    devices that do not exist.  ``sched`` (M_pad,) bool is the subband
+    scheduler's transmit set: an unscheduled device is silenced like a
+    deep-faded one and banks its whole update.  The ``mac`` hook
+    (hierarchical sites) is not ported yet and raises.
+
+    Fault injection (:mod:`repro_torch.robust`) runs when the static
+    ``scheme.robust_on`` is set, in the reference's order: Byzantine and
+    stale gradients change before encode (silent devices bank their *true*
+    gradients); on the analog path Byzantine frames are amplified by
+    ``byz_scale``, dropouts leave the transmit set, ``cfg.clip_power`` caps
+    every frame at ``power_cap * P_t`` and NaN/Inf poisoning hits the frame
+    after the cap; on the digital path the frame is poisoned, a dropout
+    banks its update, erased and dropped frames leave the combine, and
+    ``cfg.aggregator`` other than ``"mean"`` takes the robust combine.  The
+    defences gate on their static config fields, with or without faults.
 
     G points at once: grads/deltas (G, M_pad, d), one key per point (G, 2)
     and one mask per point (G, M_pad); each point decodes against its own
     ``m_eff``.
     """
-    for name, hook in (("mac", mac), ("fault", fault)):
-        if hook is not None:
-            raise NotImplementedError(
-                f"round_masked: the {name!r} hook is not ported yet")
-    cfg = scheme.cfg
-    if cfg.clip_power or cfg.aggregator != "mean":
+    if mac is not None:
         raise NotImplementedError(
-            "round_masked: robust aggregation and clip_power are not ported "
-            "yet")
+            "round_masked: the 'mac' hook (hierarchical sites) is not "
+            "ported yet")
+    cfg = scheme.cfg
     m_pad = grads.shape[-2]
     mask_b = mask > 0
     # the max guard only engages when every device is masked out
@@ -176,34 +188,83 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     if sched is not None:
         # the scheduler's transmit set composes like a deep fade
         draw = draw._replace(active=draw.active & sched)
+    robust = scheme.robust_on
+    true_grads = grads
+    if robust:
+        if fault is None:
+            fault = scheme.fault_draw(rng.fold_in(key, faults.SALT_FAULT),
+                                      step, m_pad)
+        grads = faults.apply_gradient_faults(
+            grads, fault, byz_attack=cfg.byz_attack,
+            byz_scale=scheme.byz_scale)
     active = draw.active
     frames, new_deltas, metrics = scheme.encode(
         grads, deltas, step, dev_keys, ctx.with_p_factor(draw.p_factor))
     if scheme.analog:
+        if robust:
+            # an analog attacker's leverage is transmit power: its frame
+            # breaks the power constraint by byz_scale in amplitude
+            byz_amp = torch.where(fault.byz, scheme.byz_scale[..., None],
+                                  1.0)
+            frames = frames * byz_amp[..., None]
+            active = active & ~fault.dropout
+        if cfg.clip_power:
+            # the transmit-side hardware cap bounds every device's power
+            p_t = scheme.p_t(step)      # 0-dim, or (G, 1) for G points
+            if p_t.dim():
+                p_max = (scheme.power_cap[..., None] * p_t)[..., 0]
+            else:
+                p_max = scheme.power_cap * p_t
+            frames = aggregators.clip_frame_power(frames, p_max)
+        if robust:
+            # after the cap: a power limiter cannot repair a broken DAC
+            frames = faults.apply_frame_faults(frames, fault)
         new_deltas = torch.where(active[..., None], new_deltas,
-                                 scheme.silent_state(grads, deltas,
+                                 scheme.silent_state(true_grads, deltas,
                                                      new_deltas))
         active = active & mask_b
         frames = apply_channel_gain(frames, draw._replace(active=active))
         y = channel.mac_sum(frames, rng.fold_in(key, 0),
                             round_sigma2(scheme, draw))
     else:
+        if robust:
+            # a dropout knows it failed and banks its whole update; erased
+            # and poisoned packets are lost or garbled in the channel and
+            # their unaware device's state evolves as if sent
+            frames = faults.apply_frame_faults(frames, fault)
+            new_deltas = torch.where(
+                fault.dropout[..., None],
+                scheme.silent_state(true_grads, deltas, new_deltas),
+                new_deltas)
+            active = active & ~fault.dropout & ~fault.erased
         if sched is not None:
             # an unscheduled digital device knows it was not granted a
             # subband and banks its whole update
             new_deltas = torch.where(
                 sched[..., None], new_deltas,
-                scheme.silent_state(grads, deltas, new_deltas))
+                scheme.silent_state(true_grads, deltas, new_deltas))
         active = active & mask_b
-        keep = active if sched is not None else mask_b
-        y = (frames * keep[..., None]).sum(dim=-2)
+        if cfg.aggregator != "mean":
+            y = aggregators.robust_combine(
+                frames, active, m_eff, aggregator=cfg.aggregator,
+                trim_frac=scheme.trim_frac, norm_cap=scheme.norm_cap)
+        else:
+            # the literal sum: a sorted sum re-associates
+            keep = active if (robust or sched is not None) else mask_b
+            y = (frames * keep[..., None]).sum(dim=-2)
     # padded devices do not exist: their error state must not evolve
     new_deltas = torch.where(mask_b[..., None], new_deltas, deltas)
     ghat = scheme.decode(y, step, ctx)
     w = mask.to(torch.float32)
     metrics = {k: (v * w).sum(dim=-1) / m_eff for k, v in metrics.items()}
-    metrics["active_frac"] = (active.to(torch.float32).expand(w.shape)
-                              .sum(dim=-1) / m_eff)
+
+    def frac(b):
+        return b.to(torch.float32).expand(w.shape).sum(dim=-1) / m_eff
+    metrics["active_frac"] = frac(active)
+    if robust:
+        faulty = fault.poison | fault.stale | fault.dropout | fault.erased
+        metrics["byz_frac"] = frac(fault.byz & mask_b)
+        metrics["fault_frac"] = frac(faulty & mask_b)
     return ghat, new_deltas, metrics
 
 
@@ -234,20 +295,24 @@ class CompiledExperiment:
     :meth:`run_segment` is the segment contract the checkpoint driver
     needs: rounds ``t0 .. t0 + len(keys)`` from an explicit carry
     ``(params, opt_state, deltas, momenta)``, followed by prop_fair's
-    ``(M,)`` scheduler state when the configuration schedules with it (the
-    reference's carry).  ``overrides`` swaps schedules (``p_sched`` (T,),
-    ``q_sched`` (T,)) and 0-dim channel scalars onto the scheme through
-    :meth:`Scheme.with_overrides`.  :meth:`run_grid` runs G points, each
-    with its own ``(T,)`` schedules, keys and mask, as one batched round
-    per step.
+    ``(M,)`` scheduler state when the configuration schedules with it, and
+    by a :class:`~repro_torch.robust.guards.GuardState` when ``exp.guard``
+    is set (the reference's carry).  ``overrides`` swaps schedules
+    (``p_sched`` (T,), ``q_sched`` (T,)) and 0-dim channel and robustness
+    scalars onto the scheme through :meth:`Scheme.with_overrides`.
+    :meth:`run_grid` runs G points, each with its own ``(T,)`` schedules,
+    keys and mask, as one batched round per step.
+
+    A robust scheme (``scheme.robust_on``) takes :func:`round_masked` with
+    an all-ones mask, as in the reference; a guard adds the columns
+    ``guard_lr_scale``, ``guard_skipped`` and ``guard_backoff`` to the
+    per-round metrics.
     """
 
     def __init__(self, x_dev: np.ndarray, y_dev: np.ndarray,
                  x_test: np.ndarray, y_test: np.ndarray, exp: Experiment,
                  device=None):
         cfg = exp.cfg
-        if exp.guard is not None:
-            raise NotImplementedError("round guardrails are not ported yet")
         if exp.local_steps > 1 or cfg.local != "sgd" or cfg.local_epochs != 1:
             raise NotImplementedError(
                 "only the identity local work (one SGD gradient per round) "
@@ -285,14 +350,16 @@ class CompiledExperiment:
                  zeros.clone())
         if self._sched_state:
             carry = carry + (self.scheduler.init_state(self.m, self.device),)
+        if self.exp.guard is not None:
+            carry = carry + (guards.init_guard_state(device=self.device),)
         return carry
 
     #: the reference's name for :meth:`carry0`
     _carry0 = carry0
 
     def _scheme_for(self, overrides: Dict[str, Any]) -> Scheme:
-        """The scheme with the run's overrides swapped on; a channel scalar
-        becomes a float32 tensor on the run's device."""
+        """The scheme with the run's overrides swapped on; a channel or
+        robustness scalar becomes a float32 tensor on the run's device."""
         overrides = dict(overrides)
         for name in overrides:
             if name in UNPORTED_OVERRIDE_ATTRS:
@@ -303,7 +370,7 @@ class CompiledExperiment:
                 raise AttributeError(
                     f"scheme {self.scheme.name!r} has no attribute {name!r} "
                     "to override")
-            if name in CHANNEL_OVERRIDE_ATTRS:
+            if name in SCALAR_OVERRIDE_ATTRS:
                 overrides[name] = torch.as_tensor(
                     overrides[name], dtype=torch.float32, device=self.device)
         return (self.scheme.with_overrides(**overrides) if overrides
@@ -315,6 +382,9 @@ class CompiledExperiment:
         leading point axis: the same code either way."""
         params, opt_state, deltas, momenta = carry[:4]
         sstate = carry[4] if self._sched_state else None
+        gstate = carry[-1] if self.exp.guard is not None else None
+        old_extras = (deltas, momenta) + ((sstate,) if self._sched_state
+                                          else ())
         grads, momenta = device_grads(
             params, self.xd, self.yd, momenta,
             momentum_correction=self.exp.momentum_correction)
@@ -338,22 +408,35 @@ class CompiledExperiment:
             ghat, deltas, met = round_masked(sch, grads, deltas, t, key,
                                              rmask, self.ctx, draw=draw,
                                              sched=sched)
-        elif mask is None:
+        elif mask is None and not sch.robust_on:
             ghat, deltas, met = round_simulated(sch, grads, deltas, t, key,
                                                 self.ctx)
         else:
+            # the fault path lives in round_masked; an all-ones mask is
+            # bitwise round_simulated
+            rmask = (mask if mask is not None else torch.ones(
+                (*key.shape[:-1], self.m), dtype=torch.float32,
+                device=self.device))
             ghat, deltas, met = round_masked(sch, grads, deltas, t, key,
-                                             mask, self.ctx)
-        params, opt_state = self.opt.apply(
-            params, unravel(ghat, params, batch_dims=ghat.dim() - 1),
-            opt_state)
-        out = {"acc": accuracy(params, self.xt, self.yt),
-               "loss": ce_loss(params, self.xt, self.yt),
-               "metrics": met}
-        carry = (params, opt_state, deltas, momenta)
-        if self._sched_state:
-            carry = carry + (sstate,)
-        return carry, out
+                                             rmask, self.ctx)
+        extras = (deltas, momenta) + ((sstate,) if self._sched_state else ())
+        if gstate is None:
+            params, opt_state = self.opt.apply(
+                params, unravel(ghat, params, batch_dims=ghat.dim() - 1),
+                opt_state)
+            out = {"acc": accuracy(params, self.xt, self.yt),
+                   "loss": ce_loss(params, self.xt, self.yt),
+                   "metrics": met}
+            return (params, opt_state) + extras, out
+        # a skipped or reverted round restores the pre-round extras whole
+        params, opt_state, extras, gstate, loss, gmet = guards.guarded_step(
+            self.exp.guard, gstate, self.opt, params, opt_state, ghat,
+            lambda v: unravel(v, params, batch_dims=v.dim() - 1),
+            extras=extras, old_extras=old_extras,
+            loss_fn=lambda p: ce_loss(p, self.xt, self.yt))
+        out = {"acc": accuracy(params, self.xt, self.yt), "loss": loss,
+               "metrics": {**met, **gmet}}
+        return (params, opt_state) + extras + (gstate,), out
 
     # ---------------------------------------------------------- entry
     def run_segment(self, overrides: Dict[str, Any], keys: torch.Tensor,
@@ -392,15 +475,22 @@ class CompiledExperiment:
 
     def carry0_grid(self, points: int):
         """:meth:`carry0` for G points: every leaf with a leading point
-        axis, except Adam's step count, which all points share."""
+        axis, except the optimizer's step count, which all points share
+        unless a guard may skip one point's step (then one per point, as
+        the guard state)."""
         params = {k: v.expand(points, *v.shape).clone()
                   for k, v in self.params0.items()}
         zeros = torch.zeros((points, self.m, self.d), dtype=torch.float32,
                             device=self.device)
-        carry = (params, self.opt.init(params), zeros, zeros.clone())
+        opt_state = self.opt.init(params)
+        if self.exp.guard is not None:
+            opt_state["count"] = opt_state["count"].expand(points).clone()
+        carry = (params, opt_state, zeros, zeros.clone())
         if self._sched_state:
             carry = carry + (self.scheduler.init_state(
                 self.m, self.device).expand(points, self.m).clone(),)
+        if self.exp.guard is not None:
+            carry = carry + (guards.init_guard_state(points, self.device),)
         return carry
 
     def run_grid(self, overrides: Dict[str, Any], keys: torch.Tensor,
@@ -410,7 +500,8 @@ class CompiledExperiment:
 
         ``overrides`` holds ``(G, T)`` schedules (``p_sched``, and
         ``q_sched`` for the digital schemes, whose static ``q_max`` the
-        caller sets to cover the grid) and ``(G,)`` channel scalars,
+        caller sets to cover the grid) and ``(G,)`` channel and robustness
+        scalars,
         ``keys`` is ``(G, T, 2)`` and
         ``masks`` an optional ``(G, M_pad)``.  Each point equals its own
         :meth:`run` (or :meth:`run_masked`) with its own schedules, keys
@@ -439,7 +530,9 @@ def _restore_carry(ref_carry, loaded):
     """Rebuild a checkpointed carry against the engine's own carry.
 
     The structure (dict keys, tuple lengths), shapes and dtypes must match;
-    each leaf moves to the device of its counterpart in ``ref_carry``.
+    each leaf moves to the device of its counterpart in ``ref_carry``.  The
+    npz layout keeps no class, so a NamedTuple (the guard state) is rebuilt
+    from the template's.
     """
     if isinstance(ref_carry, dict):
         if not isinstance(loaded, dict) or set(loaded) != set(ref_carry):
@@ -451,8 +544,9 @@ def _restore_carry(ref_carry, loaded):
                 or len(loaded) != len(ref_carry)):
             raise ValueError(f"checkpoint carry: expected {len(ref_carry)} "
                              f"entries, got {loaded!r:.200}")
-        return type(ref_carry)(_restore_carry(r, v)
-                               for r, v in zip(ref_carry, loaded))
+        items = [_restore_carry(r, v) for r, v in zip(ref_carry, loaded)]
+        return (type(ref_carry)(*items) if hasattr(ref_carry, "_fields")
+                else type(ref_carry)(items))
     if loaded.shape != ref_carry.shape or loaded.dtype != ref_carry.dtype:
         raise ValueError(f"checkpoint carry: leaf {tuple(loaded.shape)} "
                          f"{loaded.dtype}, expected {tuple(ref_carry.shape)} "
@@ -527,7 +621,8 @@ def run_compiled(x_dev: np.ndarray, y_dev: np.ndarray, x_test: np.ndarray,
                  lr: float = 1e-3, eval_every: int = 10, seed: int = 0,
                  optimizer: str = "adam", local_steps: int = 1,
                  local_lr: float = 0.1, momentum_correction: float = 0.0,
-                 use_kernel: bool = False, guard=None,
+                 use_kernel: bool = False,
+                 guard: Optional[guards.GuardConfig] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, resume: bool = False,
                  stop_after_step=None, device=None) -> Optional[EngineRun]:
@@ -541,8 +636,9 @@ def run_compiled(x_dev: np.ndarray, y_dev: np.ndarray, x_test: np.ndarray,
     one.  ``checkpoint_dir`` + ``checkpoint_every`` switch to
     :func:`run_checkpointed`; with ``resume=True`` an interrupted run
     continues from its snapshot, bitwise the uninterrupted run.  Returns
-    ``None`` when ``stop_after_step`` interrupts the run.  ``guard`` is not
-    ported yet and raises.
+    ``None`` when ``stop_after_step`` interrupts the run.  ``guard`` (a
+    :class:`~repro_torch.robust.guards.GuardConfig`) turns on the round
+    guardrails.
     """
     exp = Experiment(cfg=cfg, steps=steps, lr=lr, eval_every=eval_every,
                      optimizer=optimizer, local_steps=local_steps,

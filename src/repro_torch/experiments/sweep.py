@@ -22,6 +22,11 @@ and ``n_subbands``, each a ``(G,)`` stack of per-point values swapped onto
 the scheme (a multiply or compare inside the channel draw or the subband
 cutoff).  ``fading_process``, ``fading_window``, ``ps_antennas``,
 ``geometry``, ``scheduler`` and ``pf_horizon`` select structure and stay
+static axes.  The robustness scalars (``ROBUST_VMAP_AXES``: the fault
+rates, the attack magnitude, the trim fraction and the caps) batch the same
+way; sweeping any of them sets the base config's ``robust=True``, the
+static gate of the fault path, as the reference does.  ``aggregator``,
+``byz_attack``, ``fault_kind`` and ``clip_power`` select structure and are
 static axes.
 
 Everything else (``scheme``, ``s_frac``, ``k_frac``, ``projection``,
@@ -32,11 +37,9 @@ budget ``q_t`` is host-precomputed per grid point and batched beside the
 power schedule; the static ``q_max`` bound is shared across the grid (the
 q-th value of a top-k does not depend on how many values it computes).
 
-The reference's other batched axes -- the robustness rates
-(``ROBUST_VMAP_AXES``) and the local-compute knobs (``LOCAL_VMAP_AXES``) --
-and the population engine's :func:`run_population_sweep` need parts that
-are not ported yet: they are named here and raise
-``NotImplementedError``.
+The reference's local-compute knobs (``LOCAL_VMAP_AXES``) and the
+population engine's :func:`run_population_sweep` need parts that are not
+ported yet: they are named here and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,8 +57,8 @@ from repro_torch.core import power
 from repro_torch.device import resolve_device
 from repro_torch.experiments.engine import (
     CHANNEL_OVERRIDE_ATTRS, LOCAL_OVERRIDE_ATTRS, ROBUST_OVERRIDE_ATTRS,
-    UNPORTED_OVERRIDE_ATTRS, CompiledExperiment, Experiment, eval_indices,
-    round_keys,
+    SCALAR_OVERRIDE_ATTRS, UNPORTED_OVERRIDE_ATTRS, CompiledExperiment,
+    Experiment, eval_indices, round_keys,
 )
 
 #: axes realised as per-point arrays of one batched round
@@ -65,9 +68,11 @@ VMAP_AXES = ("p_avg", "power_schedule", "seed", "m_active")
 #: a (G,) scheme override of the same name in one batched round
 SCALAR_VMAP_AXES = CHANNEL_OVERRIDE_ATTRS
 
-#: the reference's batched robustness rates and local-compute knobs, each a
-#: scheme override of the same name: not ported yet
+#: the robustness scalars, each a (G,) scheme override of the same name in
+#: one batched round; sweeping one sets ``robust=True``
 ROBUST_VMAP_AXES = ROBUST_OVERRIDE_ATTRS
+
+#: the reference's batched local-compute knobs: not ported yet
 LOCAL_VMAP_AXES = LOCAL_OVERRIDE_ATTRS
 
 #: the population engine's batched knobs: not ported yet
@@ -96,7 +101,8 @@ class SweepResult:
 
 def _validate_axes(axes: Dict[str, Sequence], base: OTAConfig) -> None:
     cfg_fields = {f.name for f in dataclasses.fields(OTAConfig)}
-    vmapped = VMAP_AXES + SCALAR_VMAP_AXES + UNPORTED_OVERRIDE_ATTRS
+    vmapped = (VMAP_AXES + SCALAR_VMAP_AXES + ROBUST_VMAP_AXES
+               + UNPORTED_OVERRIDE_ATTRS)
     for name, values in axes.items():
         if name not in vmapped and name not in cfg_fields:
             raise KeyError(
@@ -107,16 +113,16 @@ def _validate_axes(axes: Dict[str, Sequence], base: OTAConfig) -> None:
     for name in axes:
         if name in UNPORTED_OVERRIDE_ATTRS:
             raise NotImplementedError(
-                f"sweep axis {name!r} is not ported yet (its robustness or "
-                "local-compute axis is not)")
+                f"sweep axis {name!r} is not ported yet (its local-compute "
+                "axis is not)")
 
 
 def grid_inputs(ce: CompiledExperiment, grid: List[Dict[str, Any]],
                 steps: int, seed: int = 0, masked: bool = False):
     """The per-point inputs of :meth:`CompiledExperiment.run_grid` for the
-    batched points ``grid`` (dicts of ``VMAP_AXES`` and ``SCALAR_VMAP_AXES``
-    values) of one static group: ``(overrides, keys, masks)``, on the
-    runner's device.
+    batched points ``grid`` (dicts of ``VMAP_AXES``, ``SCALAR_VMAP_AXES``
+    and ``ROBUST_VMAP_AXES`` values) of one static group: ``(overrides,
+    keys, masks)``, on the runner's device.
 
     Each point's power schedule, and for a digital scheme its q_t schedule
     built with the point's effective device count, are host-precomputed; the
@@ -140,7 +146,7 @@ def grid_inputs(ce: CompiledExperiment, grid: List[Dict[str, Any]],
         if masked:
             mask_rows.append((np.arange(m_pad) < m_eff).astype(np.float32))
     overrides = {"p_sched": torch.from_numpy(np.stack(p_rows)).to(dev)}
-    for name in SCALAR_VMAP_AXES:
+    for name in SCALAR_OVERRIDE_ATTRS:
         if name in grid[0]:
             overrides[name] = torch.tensor(
                 np.asarray([point[name] for point in grid], np.float32),
@@ -172,12 +178,16 @@ def run_sweep(dev_data, test_data, base: OTAConfig,
     dev = resolve_device(device)
     axes = {k: list(v) for k, v in axes.items()}
     _validate_axes(axes, base)
+    if any(k in ROBUST_VMAP_AXES for k in axes):
+        # the swept rates are data, but the fault path is a static gate:
+        # turn it on for the whole grid
+        base = dataclasses.replace(base, robust=True)
     m_pad = xd.shape[0]
     masked = "m_active" in axes
     if masked and max(axes["m_active"]) > m_pad:
         raise ValueError(f"m_active values must be <= M_pad = {m_pad}")
 
-    batched = VMAP_AXES + SCALAR_VMAP_AXES
+    batched = VMAP_AXES + SCALAR_VMAP_AXES + ROBUST_VMAP_AXES
     static_names = [k for k in axes if k not in batched]
     vmap_names = [k for k in axes if k in batched]
     records: List[Dict[str, Any]] = []

@@ -47,6 +47,15 @@
 // The debias dots reduce the same way, and a last cluster.sync() keeps every
 // CTA resident until no peer reads its shared memory.
 //
+// Non-finite observations propagate as in the plain version and the
+// reference, whose max, sign and clip carry a NaN through: a poisoned
+// frame's NaN or Inf reaches y, and the block must decode to NaN where the
+// plain version does.  CUDA's fmaxf / fminf / fmax return the other operand
+// of a NaN, so the soft threshold, its sign and the debias clamp use the
+// NaN-propagating forms below; on finite inputs they are bitwise the
+// forms they replace.  The Onsager count counts a NaN as nonzero, as the
+// plain version's `x != 0` does.
+//
 // Rounding follows the plain version (core/amp.py::amp_blocked_core) step
 // for step: the products with A, ||z||^2 and the two debias dots are summed
 // in double and rounded once to float; every other step is one float32
@@ -110,6 +119,23 @@ struct Plan {
 // entry times v (exact in double).
 __device__ __forceinline__ double gauss_term(uint32_t h, double v, float scale) {
   return static_cast<double>(__fmul_rn(gaussian_entry(h), scale)) * v;
+}
+
+// max(v, 0), NaN for a NaN v (jnp.maximum, torch.clamp).
+__device__ __forceinline__ float relu_nan(float v) {
+  return v > 0.0f || v != v ? v : 0.0f;
+}
+
+// soft(r, tau) = sign(r) * max(|r| - tau, 0) as the plain version computes
+// it: +mag, -mag or 0 * mag by the sign of r, so a NaN r or tau gives NaN.
+__device__ __forceinline__ float soft_nan(float r, float tau) {
+  const float mag = relu_nan(__fsub_rn(fabsf(r), tau));
+  return r > 0.0f ? mag : (r < 0.0f ? -mag : __fmul_rn(0.0f, mag));
+}
+
+// clip(q, 1, 2), NaN for a NaN q (jnp.clip, torch.clamp).
+__device__ __forceinline__ float clip12_nan(float q) {
+  return q != q ? q : fminf(fmaxf(q, 1.0f), 2.0f);
 }
 
 template <bool RAD>
@@ -284,8 +310,7 @@ amp_fused_kernel(const float* __restrict__ yb, const uint32_t* __restrict__ seed
       double acc = 0.0;
       for (int g = 0; g < G; ++g) acc += part[g * P.words * 32 + j];
       const float r = __fadd_rn(static_cast<float>(x[j]), finish<RAD>(acc, scale));
-      const float mag = fmaxf(__fsub_rn(fabsf(r), tau), 0.0f);
-      const float xn = r > 0.0f ? mag : (r < 0.0f ? -mag : 0.0f);
+      const float xn = soft_nan(r, tau);
       x[j] = xn;
       nnz += xn != 0.0f ? 1 : 0;
     }
@@ -343,7 +368,9 @@ amp_fused_kernel(const float* __restrict__ yb, const uint32_t* __restrict__ seed
     cluster.sync();
     num = cluster_sum(cluster, dslot + 1, K, dslot + 3);
     den = cluster_sum(cluster, dslot + 2, K, dslot + 3);
-    factor = fminf(fmaxf(static_cast<float>(num / fmax(den, 1e-12)), 1.0f), 2.0f);
+    // max(den, 1e-12) keeps a NaN den, as the plain version's clamp does
+    const double den_safe = den > 1e-12 || den != den ? den : 1e-12;
+    factor = clip12_nan(static_cast<float>(num / den_safe));
   }
   for (int j = tid; j < cw; j += kThreads)
     xb[row * c + c0 + j] = __fmul_rn(static_cast<float>(x[j]), factor);

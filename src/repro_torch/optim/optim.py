@@ -4,6 +4,10 @@ The port of the reference's ``repro/optim/optim.py``.  Adam is the paper's
 §VI choice: the PS applies it to the reconstructed average gradient.
 Parameters, gradients and optimizer moments are dicts of tensors with the
 same keys; ``apply`` returns new dicts and leaves its inputs untouched.
+
+A sweep's grid gives every leaf a leading point axis.  The step count is
+then shared by all points (0-dim), or one per point (``(G,)``) where a
+guard may skip a point's step; the schedule's scalars follow it.
 """
 from __future__ import annotations
 
@@ -16,6 +20,14 @@ import torch
 from repro_torch.device import div_f32
 
 Params = Dict[str, torch.Tensor]
+
+
+def _per_leaf(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A step-count scalar against a leaf: as it is when 0-dim; one per
+    point, ``(G,)``, shaped to broadcast along the leaf's trailing axes."""
+    if v.dim() == 0:
+        return v
+    return v.reshape(v.shape + (1,) * (leaf.dim() - v.dim()))
 
 
 @dataclass(frozen=True)
@@ -60,6 +72,13 @@ class Optimizer:
     # ------------------------------------------------------------------ apply
     def apply(self, params: Params, grads: Params,
               state: dict) -> Tuple[Params, dict]:
+        steps, state = self.steps(params, grads, state)
+        return {k: p - steps[k] for k, p in params.items()}, state
+
+    def steps(self, params: Params, grads: Params,
+              state: dict) -> Tuple[Params, dict]:
+        """The step each parameter takes, ``apply`` being ``params -
+        steps``, and the new state."""
         if self.grad_clip > 0:
             sq = sum((g.float() ** 2).sum() for g in grads.values())
             scale = torch.clamp(self.grad_clip / torch.clamp(
@@ -79,17 +98,19 @@ class Optimizer:
             vhat_s = 1.0 / (1 - b2 ** c)
 
             def upd(p, m_, v_):
-                step_ = m_ * mhat_s / (torch.sqrt(v_ * vhat_s) + self.eps)
-                return p - lr * (step_ + wd * p)
+                step_ = m_ * _per_leaf(mhat_s, p) / (
+                    torch.sqrt(v_ * _per_leaf(vhat_s, p)) + self.eps)
+                return _per_leaf(lr, p) * (step_ + wd * p)
 
-            new_params = {k: upd(p, m[k], v[k]) for k, p in params.items()}
-            return new_params, {"m": m, "v": v, "count": count}
+            steps = {k: upd(p, m[k], v[k]) for k, p in params.items()}
+            return steps, {"m": m, "v": v, "count": count}
         if self.name == "momentum":
             m = {k: self.momentum * state["m"][k] + g for k, g in grads.items()}
-            new_params = {k: p - lr * (m[k] + wd * p) for k, p in params.items()}
-            return new_params, {"m": m, "count": count}
+            steps = {k: _per_leaf(lr, p) * (m[k] + wd * p)
+                     for k, p in params.items()}
+            return steps, {"m": m, "count": count}
         if self.name == "sgd":
-            new_params = {k: p - lr * (grads[k] + wd * p)
-                          for k, p in params.items()}
-            return new_params, {"count": count}
+            steps = {k: _per_leaf(lr, p) * (grads[k] + wd * p)
+                     for k, p in params.items()}
+            return steps, {"count": count}
         raise ValueError(self.name)

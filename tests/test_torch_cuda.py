@@ -516,6 +516,8 @@ def _site_case(name, dev):
                 (randn(G, S_TILDE),))
     if name in CHANNEL_SITES:
         return _channel_site(name, dev)
+    if name in ROBUST_SITES:
+        return _robust_site(name, dev)
     raise KeyError(name)
 
 
@@ -527,11 +529,18 @@ CHANNEL_SITES = ("gauss_markov_weights", "gauss_markov_gains",
                  "schedule")
 
 
+#: the robustness axis's point-axis sites: the power cap on G points'
+#: frames with a (G,) cap, the three combines with (G,) scalars, the fault
+#: draw with (G,) rates and G round keys
+ROBUST_SITES = ("clip_frame_power", "trimmed_mean", "median", "norm_cap",
+                "fault_draw")
+
+
 @pytest.mark.parametrize("name", ["mac_sum", "make_frame_2048",
                                   "make_frame_1962", "frame_power",
                                   "metric_mean", "device_grads",
                                   "accuracy_and_loss", "dense_amp",
-                                  *CHANNEL_SITES])
+                                  *CHANNEL_SITES, *ROBUST_SITES])
 def test_point_axis_site_on_card(dev, name):
     fn, xs = _site_case(name, dev)
     _assert_same(fn(*xs), _lone(fn, *xs))
@@ -775,3 +784,208 @@ def test_channel_grid_equals_run_compiled_on_card(dev, axis, values, kw):
             one.all_accs.tolist()
         assert outs["loss"][g].cpu().numpy().tolist() == \
             one.all_losses.tolist()
+
+
+# ---------------------------------------------------------------------------
+# the robustness axis on the card
+# ---------------------------------------------------------------------------
+
+
+def _robust_site(name, dev):
+    """``(fn, inputs)`` of one robust point-axis site at the sweep's shapes
+    (G = 4 points of 25 devices, frames of 2 * 1024 + 2; digital frames of
+    3925)."""
+    from repro_torch import rng
+    from repro_torch.robust import aggregators, faults
+    gen = _gen(dev, 19)
+    if name == "clip_frame_power":
+        frames = torch.randn(G, M_DEV, S_TILDE + 2, generator=gen,
+                             device=dev)
+        frames[:, ::3] *= 20.0
+        return (aggregators.clip_frame_power,
+                (frames, torch.tensor([1.5, 2.0, 1.0, 3.0], device=dev)
+                 * (S_TILDE + 2)))
+    if name == "fault_draw":
+        keys = rng.split(rng.PRNGKey(6, dev), G)
+        fkey = faults.fault_base_key(0, dev)
+        return (lambda k, a, b, c: faults.fault_draw(
+                    fkey, k, M_DEV, byzantine_frac=a, fault_rate=b,
+                    erasure_prob=c, fault_kind="stale")[:5],
+                (keys, torch.tensor([0.0, 0.1, 0.3, 0.5], device=dev),
+                 torch.tensor([0.1, 0.2, 0.0, 0.4], device=dev),
+                 torch.tensor([0.3, 0.0, 0.1, 0.2], device=dev)))
+    frames = torch.randn(G, M_DEV, 3925, generator=gen, device=dev)
+    frames[1, 4] = float("nan")
+    frames[2, 7] = float("inf")
+    alive = torch.rand(G, M_DEV, generator=gen, device=dev) > 0.2
+    m_eff = alive.float().sum(-1).clamp(min=1.0)
+    return (lambda f, a, me, t, c: aggregators.robust_combine(
+                f, a, me, aggregator=name, trim_frac=t, norm_cap=c),
+            (frames, alive, m_eff,
+             torch.tensor([0.1, 0.2, 0.25, 0.0], device=dev),
+             torch.tensor([1.5, 1.0, 2.0, 1.5], device=dev)))
+
+
+def _same_nan(a, b):
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")])
+@pytest.mark.parametrize("points", [1, 4])
+def test_amp_fused_nonfinite(dev, value, points):
+    """A NaN or an Inf in block 0 of one point's y, at the main path's
+    shape: the plain version's NaN pattern (the whole block) and its other
+    entries bitwise; every clean block and point bitwise the clean
+    decode."""
+    nb, c, sb = 2, 4096, 1024
+    gen = _gen(dev, 23)
+    x = torch.zeros(points, nb, c, device=dev)
+    for p in range(points):
+        for b in range(nb):
+            x[p, b, torch.randperm(c, generator=gen, device=dev)[:sb // 8]] \
+                = torch.randn(sb // 8, generator=gen, device=dev)
+    clean = (ref.ota_project_ref(x, 9, sb) + 0.01 * torch.randn(
+        points, nb, sb, generator=gen, device=dev)).contiguous()
+    bad = points // 2
+    yb = clean.clone()
+    yb[bad, 0, 100] = value
+    if points == 1:
+        yb, clean = yb[0], clean[0]
+    out = amp_fused.amp_decode_fused(yb, 9, c, iters=20)
+    want = amp_blocked_core(yb, 9, c, iters=20)
+    ok = amp_fused.amp_decode_fused(clean, 9, c, iters=20)
+    assert _same_nan(out, want)
+    out, ok = out.reshape(points, nb, c), ok.reshape(points, nb, c)
+    assert bool(torch.isnan(out[bad, 0]).all())
+    keep = torch.ones(points, nb, dtype=torch.bool, device=dev)
+    keep[bad, 0] = False
+    assert torch.equal(out[keep], ok[keep])
+
+
+def test_accuracy_over_nan_logits_on_card_equals_cpu(dev):
+    """NaN weights after an unguarded poisoned round: argmax over NaN
+    logits gives the CPU's (and jnp's) first-NaN index on the card too, so
+    the accuracy is the CPU's bitwise."""
+    from repro_torch.train import paper_repro as tpr
+    cpu = torch.Generator().manual_seed(29)
+    x = torch.randn(10000, 784, generator=cpu)
+    y = torch.randint(0, 10, (10000,), generator=cpu)
+    w = 0.01 * torch.randn(784, 10, generator=cpu)
+    b = torch.zeros(10)
+    for case in range(3):
+        wc, bc = w.clone(), b.clone()
+        if case == 0:
+            wc[5, 3] = float("nan")     # NaN wherever x[:, 5] != 0
+        elif case == 1:
+            bc[7] = float("nan")        # column 7 NaN in every row
+        else:
+            wc[:] = float("nan")
+        logits = x @ wc + bc
+        assert torch.equal(logits.to(dev).argmax(-1).cpu(), logits.argmax(-1))
+        p_cpu = {"w": wc, "b": bc}
+        p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+        assert torch.equal(tpr.accuracy(p_dev, x.to(dev), y.to(dev)).cpu(),
+                           tpr.accuracy(p_cpu, x, y))
+
+
+#: a batched robust round: (config fields, the (G,) axis, its values)
+ROBUST_ROUNDS = {
+    "analog_capped": (dict(scheme="a_dsgd", robust=True, byz_scale=20.0,
+                           clip_power=True, fault_kind="nan",
+                           fault_rate=0.1), "byzantine_frac",
+                      (0.0, 0.1, 0.3, 0.5)),
+    "analog_dropout": (dict(scheme="a_dsgd", robust=True,
+                            fault_kind="dropout", byzantine_frac=0.1),
+                       "fault_rate", (0.0, 0.1, 0.3, 0.5)),
+    "digital_norm_cap": (dict(scheme="d_dsgd", robust=True,
+                              aggregator="norm_cap", byz_scale=20.0,
+                              erasure_prob=0.1), "byzantine_frac",
+                         (0.0, 0.1, 0.3, 0.5)),
+    "digital_trimmed": (dict(scheme="d_dsgd", robust=True,
+                             aggregator="trimmed_mean", byzantine_frac=0.3,
+                             fault_kind="stale", fault_rate=0.2),
+                        "trim_frac", (0.0, 0.1, 0.2, 0.3)),
+}
+
+
+@pytest.mark.parametrize("name", list(ROBUST_ROUNDS))
+def test_point_axis_robust_round_on_card(dev, name):
+    """One batched robust round (``round_masked``, a mask per point) at the
+    sweep's shapes with a ``(G,)`` robust scalar: each point's ghat, error
+    state and metrics are its own round's, bitwise, NaN for NaN."""
+    from repro_torch import rng
+    from repro_torch.core.schemes import MACContext, get_scheme
+    from repro_torch.experiments.engine import round_masked
+    kw, axis, values = ROBUST_ROUNDS[name]
+    cfg = dataclasses.replace(_round_cfg("a_dsgd"), **kw)
+    gen = _gen(dev, 31)
+    grads = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    deltas = 0.01 * torch.randn(G, M_DEV, D_MODEL, generator=gen, device=dev)
+    keys = rng.split(rng.PRNGKey(1005, dev), G)
+    masks = (torch.rand(G, M_DEV, generator=gen, device=dev) > 0.2).float()
+    one = [get_scheme(dataclasses.replace(cfg, **{axis: v}), D_MODEL, M_DEV,
+                      device=dev) for v in values]
+    ov = {axis: torch.stack([getattr(s, axis) for s in one])}
+    if hasattr(one[0], "q_sched"):
+        ov["q_sched"] = torch.stack([s.q_sched for s in one])
+    grid = one[0].with_overrides(**ov)
+    ctx = MACContext(m=M_DEV, use_kernel=cfg.use_kernel)
+    gh, dl, met = round_masked(grid, grads, deltas, 1, keys, masks, ctx)
+    for p, sch in enumerate(one):
+        gh1, dl1, met1 = round_masked(sch, grads[p].clone(),
+                                      deltas[p].clone(), 1, keys[p].clone(),
+                                      masks[p].clone(), ctx)
+        assert _same_nan(gh[p], gh1) and _same_nan(dl[p], dl1)
+        assert set(met) == set(met1)
+        for k in met1:
+            assert _same_nan(met[k][p], met1[k]), k
+
+
+def test_guarded_robust_grid_equals_run_compiled_on_card(dev):
+    """A guarded grid over the fault rate (NaN frames) and a sweep over
+    byzantine_frac x clip_power equal each point's own run on the card,
+    accuracies, losses and the guard's column bitwise; the kernels launch
+    once a round for each group."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.robust import GuardConfig
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    cfg = OTAConfig(scheme="a_dsgd", s_frac=0.5, k_frac=0.25, p_avg=500.0,
+                    total_steps=6, projection="blocked", block_size=64,
+                    use_kernel=True, amp_iters=6, mean_removal_steps=2,
+                    fault_kind="nan", robust=True)
+    guard = GuardConfig()
+    ce = engine.CompiledExperiment(xd, yd, xte, yte, engine.Experiment(
+        cfg=cfg, steps=6, eval_every=1, guard=guard))
+    grid = [{"fault_rate": r} for r in (0.0, 0.05, 0.2)]
+    ov, keys, _ = sweep.grid_inputs(ce, grid, 6)
+    ops.reset_launches()
+    outs = ce.run_grid(ov, keys)
+    assert ops.launch_counts()["amp_fused"] == 6
+    for g, point in enumerate(grid):
+        one = engine.run_compiled(xd, yd, xte, yte,
+                                  dataclasses.replace(cfg, **point),
+                                  steps=6, eval_every=1, guard=guard)
+        assert outs["loss"][g].cpu().numpy().tolist() == \
+            one.all_losses.tolist()
+        assert outs["metrics"]["guard_skipped"][g].cpu().tolist() == \
+            [m["guard_skipped"] for m in one.metrics]
+    base = dataclasses.replace(cfg, robust=False, fault_kind="nan",
+                               byz_scale=20.0)
+    ops.reset_launches()
+    res = sweep.run_sweep((xd, yd), (xte, yte), base,
+                          {"byzantine_frac": [0.0, 0.3],
+                           "clip_power": [False, True]}, steps=6,
+                          eval_every=2)
+    assert ops.launch_counts()["amp_fused"] == 12
+    for rec in res.records:
+        one = engine.run_compiled(xd, yd, xte, yte, dataclasses.replace(
+            base, robust=True, byzantine_frac=rec["byzantine_frac"],
+            clip_power=rec["clip_power"]), steps=6, eval_every=2)
+        assert rec["accs"] == one.accs and rec["losses"] == one.losses

@@ -19,6 +19,7 @@ from repro_torch.configs.base import OTAConfig
 from repro_torch.core.schemes import get_scheme, round_simulated
 from repro_torch.data import federated_split, make_classification
 from repro_torch.experiments import engine
+from repro_torch.robust import GuardConfig
 from repro_torch.train import paper_repro as tpr
 from repro_torch.train.checkpoint import load_checkpoint
 
@@ -232,8 +233,11 @@ def test_run_compiled_defaults_to_the_card(data):
 def test_unported_parts_raise(data, what):
     cfg = OTAConfig(**CONFIGS["ideal"])
     if what == "guard":
-        with pytest.raises(NotImplementedError):
-            engine.run_compiled(*data, cfg, steps=1, guard=object(), **CPU)
+        # the guardrails are ported (tests/test_torch_robust_engine.py):
+        # a guarded run adds the guard's columns
+        run = engine.run_compiled(*data, cfg, steps=1, guard=GuardConfig(),
+                                  **CPU)
+        assert run.metrics[0]["guard_skipped"] == 0.0
     elif what == "local":
         with pytest.raises(NotImplementedError):
             engine.run_compiled(*data, dataclasses.replace(cfg,
@@ -244,11 +248,12 @@ def test_unported_parts_raise(data, what):
         ce = engine.CompiledExperiment(*data, exp, device="cpu")
         keys = engine.round_keys(1, 0, "cpu")
         if what == "overrides":
-            # the schedules and the channel scalars are ported
-            # (tests/test_torch_sweep.py, tests/test_torch_channel.py); the
-            # robustness rates need the robustness axis
-            with pytest.raises(NotImplementedError, match="byzantine_frac"):
-                ce.run({"byzantine_frac": torch.ones(())}, keys)
+            # the schedules, the channel and the robustness scalars are
+            # ported (tests/test_torch_sweep.py, tests/test_torch_channel.py,
+            # tests/test_torch_robust_engine.py); the local-compute knobs
+            # need the local-compute axis
+            with pytest.raises(NotImplementedError, match="local_epochs"):
+                ce.run({"local_epochs": torch.ones(())}, keys)
         else:
             with pytest.raises(NotImplementedError):
                 engine.round_masked(ce.scheme, torch.zeros(M, ce.d),

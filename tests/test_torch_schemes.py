@@ -80,10 +80,13 @@ def test_round_metrics(rounds, name):
 
 
 def test_unported_axes_raise_at_construction():
-    for kw in (dict(robust=True), dict(byzantine_frac=0.1),
-               dict(local="fedavg"), dict(local_epochs=2)):
+    for kw in (dict(local="fedavg"), dict(local_epochs=2)):
         with pytest.raises(NotImplementedError):
             ts.get_scheme(TorchOTAConfig(**kw), D, M, device="cpu")
+    # the robustness axis is ported: its configs build
+    for kw in (dict(robust=True), dict(byzantine_frac=0.1)):
+        assert ts.get_scheme(TorchOTAConfig(**kw), D, M,
+                             device="cpu").robust_on
     # the digital baselines, the fading schemes, the geometry and the
     # schedulers are ported: they build
     for name in ("d_dsgd", "signsgd", "qsgd", "a_dsgd_fading",

@@ -197,11 +197,23 @@ def test_sweep_unknown_axis_raises(data):
 
 @pytest.mark.parametrize("axis", ROBUST_VMAP_AXES + LOCAL_VMAP_AXES)
 def test_unported_vmapped_axes_raise(data, axis):
-    """The reference's robustness and local-compute axes keep their names
-    here and raise, naming the axis (the channel scalars are ported:
-    tests/test_torch_channel.py)."""
-    with pytest.raises(NotImplementedError, match=axis):
-        run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
+    """The reference's local-compute axes keep their names here and raise,
+    naming the axis.  The robustness axes are ported (the channel scalars
+    too: tests/test_torch_channel.py): a one-point sweep over one turns on
+    the fault path and equals its own robust run_compiled
+    (tests/test_torch_robust_engine.py holds the grids)."""
+    if axis in LOCAL_VMAP_AXES:
+        with pytest.raises(NotImplementedError, match=axis):
+            run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
+        return
+    res = run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
+    (xd, yd), (xt, yt) = data
+    own = engine.run_compiled(xd, yd, xt, yt,
+                              _adsgd(robust=True, **{axis: 0.1}),
+                              steps=2, eval_every=10, **CPU)
+    rec, = res.records
+    assert rec["accs"] == own.accs and rec["losses"] == own.losses
+    assert "byz_frac" in rec["metrics"][0]
 
 
 def test_population_sweep_raises(data):
