@@ -29,7 +29,10 @@ Phases, one JSON line each:
             the observations a poisoned frame leaves (one NaN, +Inf or
             -Inf in block 0, at G = 1 and in one point of G = 4): the
             plain version's NaN pattern, its other entries bitwise, every
-            clean block and point bitwise the clean decode.  Each record times
+            clean block and point bitwise the clean decode; and
+            ``cohort_widths``: ota_project at 20 and 64 devices (x 2 x
+            4096 -> 1024, Rademacher) and ef_sparsify at 64 x 7850, the
+            local and population paths' widths, bitwise.  Each record times
             the kernel four ways:
             ``kernel_ms`` per call (median of single calls between CUDA
             events, Python wrapper included); ``graph_device_ms``, the
@@ -107,12 +110,35 @@ Phases, one JSON line each:
             to its own run_compiled and each group launching the three
             kernels once per batched round.  Per run: ms per round beside
             the AWGN slice's, timed in turns;
-10. kernels the per-kernel record: route, source, the TPU kernel it
+10. local   Fig. 12's analog grid (``benchmarks/fig12_local.py``) at the
+            slice's config: a Dirichlet beta = 0.25 split over M = 20
+            devices of B = 100, local_lr 0.6, prox_mu 0.5, dyn_alpha 0.1,
+            P-bar 50 000, run_sweep over local in {fedavg, fedprox, feddyn}
+            x local_epochs in {1, 2, 4}, 20 rounds: three groups of G = 3,
+            each launching the three kernels once per batched round, every
+            record equal to its own run_compiled; local=sgd compiled for 2
+            epochs and run at E = 1 is device_grads bitwise, and its grid
+            record the AWGN run_compiled.  Per group: ms per batched round
+            beside the E = 4 point's lone run and the AWGN round, in turns;
+11. population
+            the sampled-cohort engine at the slice's config: K == M = 25 on
+            the slice's data is run_compiled bitwise; Fig. 10 FULL's
+            largest sampled point (``benchmarks/fig10_scaling.py``: M =
+            100 000, K = 64, B = 64, capacity 8192, IID population_partition
+            of the 60 000-sample surrogate), its bank bytes, peak memory,
+            ms per round beside the AWGN round's; the same population with
+            avail_rate 0.9, speed_sigma 0.5, straggler_deadline 5.0 and
+            four edge sites (the mac hook must run once a round);
+            run_population_sweep over avail_rate in {0.5, 0.9, 1.0}, each
+            record its own run_population; and a FedDyn population run
+            stopped at round 10 and resumed, bitwise the uninterrupted run;
+12. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
-Each path (slice, unfused_decode, engine, sweep, channel, robust) runs with
-every launch count set to 0 just before it and read just after.
+Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
+population) runs with every launch count set to 0 just before it and read
+just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -179,7 +205,9 @@ PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
                 "channel": ("ef_sparsify", "ota_project", "amp_fused"),
-                "robust": ("ef_sparsify", "ota_project", "amp_fused")}
+                "robust": ("ef_sparsify", "ota_project", "amp_fused"),
+                "local": ("ef_sparsify", "ota_project", "amp_fused"),
+                "population": ("ef_sparsify", "ota_project", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
 #: point counts at which the point-axis amp_fused is also timed
@@ -203,6 +231,16 @@ CHANNEL_CSI_GRID = (0.0, 0.1, 0.4, 0.8)
 #: the robust phase's grid of Byzantine fractions (Fig. 11's axis)
 ROBUST_FRACS = (0.0, 0.1, 0.3)
 CHANNEL_RADII = (100.0, 400.0, 1600.0)
+#: the local phase: Fig. 12's analog grid (benchmarks/fig12_local.py), a
+#: Dirichlet beta = 0.25 split over M = 20 devices of B = 100 samples
+LOCAL_ALGOS = ("fedavg", "fedprox", "feddyn")
+LOCAL_EPOCHS = (1, 2, 4)
+LOCAL_M, LOCAL_B, LOCAL_BETA = 20, 100, 0.25
+LOCAL_LR, PROX_MU, DYN_ALPHA, LOCAL_P_AVG = 0.6, 0.5, 0.1, 50_000.0
+#: the population phase: Fig. 10 FULL's largest sampled point
+#: (benchmarks/fig10_scaling.py): M = 100 000, K = 64, B = 64, capacity 8192
+POP_M, POP_K, POP_B, POP_CAPACITY = 100_000, 64, 64, 8192
+POP_AVAIL_GRID = (0.5, 0.9, 1.0)
 
 
 class CheckFailed(RuntimeError):
@@ -435,7 +473,7 @@ def check_ef_sparsify(m: int, n: int, k: int, device, gen):
 
 
 def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
-                      device, gen):
+                      device, gen, bitwise: bool = False):
     import torch
     from repro_torch.kernels import ota_project, ref
     x = torch.randn(m, n_blocks, c, generator=gen, device=device)
@@ -456,6 +494,9 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
     again = ota_project.ota_project(x, seed, s, rademacher)
     torch.cuda.synchronize()
     check(torch.equal(y, again), "ota_project: two runs differ")
+    check(not bitwise or torch.equal(y, y_ref),
+          f"ota_project {m}x{n_blocks}x{c}->{s}: not bitwise equal to its "
+          "plain version")
     abs_err, rel_err = errors(y, y_ref)
     return dict(
         kernel="ota_project", shape=[m, n_blocks, c, s],
@@ -781,18 +822,29 @@ def round_breakdown(xd, yd, cfg, device, reps: int = 10):
     }
 
 
+_SURROGATE = {}
+
+
+def surrogate(n_train: int = 60000, n_test: int = 10000):
+    """The figure benchmarks' MNIST surrogate at the paper's FULL scale,
+    made once: ``((x_train, y_train), (x_test, y_test))``."""
+    from repro_torch.data import make_classification
+    if (n_train, n_test) not in _SURROGATE:
+        _SURROGATE[n_train, n_test] = make_classification(
+            n_train=n_train, n_test=n_test, noise=6.0, seed=3)
+    return _SURROGATE[n_train, n_test]
+
+
 def run_slice(device, steps: int = STEPS, m: int = 25, b: int = 1000,
               n_train: int = 60000, n_test: int = 10000):
     import numpy as np
     import torch
-    from repro_torch.data import federated_split, make_classification
+    from repro_torch.data import federated_split
     from repro_torch.kernels import ops
     from repro_torch.train.paper_repro import run_federated
 
     t0 = time.perf_counter()
-    # the figure benchmarks' surrogate at the paper's FULL scale
-    (xtr, ytr), (xte, yte) = make_classification(
-        n_train=n_train, n_test=n_test, noise=6.0, seed=3)
+    (xtr, ytr), (xte, yte) = surrogate(n_train, n_test)
     x_dev, y_dev = federated_split(xtr, ytr, m=m, b=b, iid=True, seed=0)
     data_s = time.perf_counter() - t0
     cfg = slice_config(steps)
@@ -1205,6 +1257,27 @@ def run_channel_phase(data, cfg, device, steps: int = STEPS,
         sweep_groups=groups)
 
 
+def launch_counter(path: str, total: dict, steps: int = STEPS):
+    """``counted(fn, want=steps)``: ``fn()`` with the launch counts set to
+    0 just before and read just after, added to ``total``; each kernel of
+    ``path`` must launch ``want`` times."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def counted(fn, want=steps):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        for k in PATH_KERNELS[path]:
+            check(n[k] == want, f"{path}: {k} launched {n[k]} times, "
+                  f"expected {want}")
+        return out, n
+    return counted
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the robustness axis
 # ---------------------------------------------------------------------------
@@ -1233,27 +1306,13 @@ def run_robust_phase(data, cfg, eng_line, device, steps: int = STEPS,
     import numpy as np
     import torch
     from repro_torch.experiments import engine, sweep
-    from repro_torch.kernels import ops
     from repro_torch.robust import GuardConfig, byzantine_set, fault_base_key
 
     x_dev, y_dev, xte, yte = data
     m = int(x_dev.shape[0])
     kw = dict(steps=steps, lr=1e-3, eval_every=eval_every, device=device)
     total = {}
-
-    def counted(fn, want=steps):
-        """``fn()`` with the launch counts set to 0 just before and read
-        just after; each path kernel must launch ``want`` times."""
-        ops.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        n = ops.launch_counts()
-        for k, v in n.items():
-            total[k] = total.get(k, 0) + v
-        for k in PATH_KERNELS["robust"]:
-            check(n[k] == want, f"robust: {k} launched {n[k]} times, "
-                  f"expected {want}")
-        return out, n
+    counted = launch_counter("robust", total, steps)
 
     def final(run):
         check(all(np.isfinite(run.all_losses)),
@@ -1396,6 +1455,266 @@ def run_robust_phase(data, cfg, eng_line, device, steps: int = STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the local-compute axis
+# ---------------------------------------------------------------------------
+
+
+def run_local_phase(cfg, device, steps: int = STEPS, eval_every: int = 5):
+    """Fig. 12's analog grid: FedAvg-E, FedProx and FedDyn at E in {1, 2,
+    4} on a Dirichlet beta = 0.25 split, through run_sweep."""
+    import numpy as np
+    import torch
+    from repro_torch.data import federated_split
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.local import get_local, local_device_grads
+    from repro_torch.train.paper_repro import device_grads, flat_grad_fn
+
+    (xtr, ytr), (xte, yte) = surrogate()
+    x_dev, y_dev = federated_split(xtr, ytr, m=LOCAL_M, b=LOCAL_B,
+                                   kind="dirichlet", beta=LOCAL_BETA, seed=0)
+    data = (x_dev, y_dev, xte, yte)
+    base = dataclasses.replace(cfg, p_avg=LOCAL_P_AVG, prox_mu=PROX_MU,
+                               dyn_alpha=DYN_ALPHA)
+    kw = dict(steps=steps, lr=1e-3, eval_every=eval_every,
+              local_lr=LOCAL_LR, device=device)
+    total = {}
+    counted = launch_counter("local", total)
+
+    # (a) the grid: three static groups of G = 3 batched points
+    axes = {"local": list(LOCAL_ALGOS), "local_epochs": list(LOCAL_EPOCHS)}
+    t0 = time.perf_counter()
+    res, _ = counted(lambda: sweep.run_sweep(
+        (x_dev, y_dev), (xte, yte), base, axes, steps=steps, lr=1e-3,
+        eval_every=eval_every, local_lr=LOCAL_LR, device=device),
+        len(LOCAL_ALGOS) * steps)
+    sweep_s = time.perf_counter() - t0
+    check(len(res.records) == len(LOCAL_ALGOS) * len(LOCAL_EPOCHS),
+          f"local: {len(res.records)} records")
+    last = None
+    for rec in res.records:
+        one = engine.run_compiled(*data, dataclasses.replace(
+            base, local=rec["local"], local_epochs=rec["local_epochs"]),
+            **kw)
+        check(rec["accs"] == one.accs and rec["losses"] == one.losses,
+              f"local grid {rec['local']} E={rec['local_epochs']}: the "
+              f"record {rec['losses']} is not its own run_compiled "
+              f"{one.losses}")
+        check(all(np.isfinite(one.all_losses)),
+              f"local: non-finite losses {one.losses}")
+        last = one
+
+    # (b) the E = 1 pin: sgd compiled for 2 epochs and run at 1 is the
+    # one-gradient round, at a trained model's weights
+    params = {k: v.clone() for k, v in last.params.items()}
+    xd = torch.as_tensor(x_dev, device=device)
+    yd = torch.as_tensor(y_dev, device=device).long()
+    lw = get_local(dataclasses.replace(base, local="sgd", local_epochs=2),
+                   LOCAL_LR, device=device).with_overrides(local_epochs=1.0)
+    pinned = local_device_grads(lw, flat_grad_fn(params), params, xd, yd,
+                                None)[0]
+    plain = device_grads(params, xd, yd, None)[0]
+    torch.cuda.synchronize()
+    check(torch.equal(pinned, plain), "local: sgd at E=1 under a 2-epoch "
+          "bound is not device_grads bitwise on the card")
+
+    # (c) local=sgd, E=1 in a grid is the AWGN engine run bitwise
+    sgd, _ = counted(lambda: sweep.run_sweep(
+        (x_dev, y_dev), (xte, yte), dataclasses.replace(base, local="sgd"),
+        {"local_epochs": [1, 2]}, steps=steps, lr=1e-3,
+        eval_every=eval_every, local_lr=LOCAL_LR, device=device), steps)
+    awgn = engine.run_compiled(*data, base, **kw)
+    rec = sgd.record(local_epochs=1)
+    check(rec["accs"] == awgn.accs and rec["losses"] == awgn.losses,
+          "local: sgd at E=1 in a grid is not the AWGN run_compiled")
+
+    # per group: ms per batched round, beside the heaviest point's lone
+    # run and the AWGN round, in turns
+    exp0 = engine.Experiment(cfg=base, steps=steps, eval_every=eval_every,
+                             local_lr=LOCAL_LR)
+    awgn_ce = engine.CompiledExperiment(*data, exp0, device=device)
+    keys = engine.round_keys(steps, 0, device)
+    grid = [{"local_epochs": e} for e in LOCAL_EPOCHS]
+    groups = []
+    for algo in LOCAL_ALGOS:
+        # built for the grid's largest E, so its static epoch bound covers
+        # every point; each point's own E is its override
+        exp = dataclasses.replace(exp0, cfg=dataclasses.replace(
+            base, local=algo, local_epochs=max(LOCAL_EPOCHS)))
+        ce = engine.CompiledExperiment(*data, exp, device=device)
+        ov, gkeys, _ = sweep.grid_inputs(ce, grid, steps)
+        _, gn = counted(lambda: ce.run_grid(ov, gkeys), steps)
+        lone = engine.CompiledExperiment(*data, exp, device=device)
+        a_ms, g_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                    lambda: ce.run_grid(ov, gkeys), reps=2)
+        l_ms, _ = alternating_ms(lambda: lone.run({}, keys),
+                                 lambda: awgn_ce.run({}, keys), reps=2)
+        groups.append(dict(
+            local=algo, points=len(grid), launches=gn,
+            ms_per_batched_round=g_ms / steps,
+            ms_per_round_lone_e4=l_ms / steps,
+            awgn_ms_per_round=a_ms / steps,
+            final_accs={str(r["local_epochs"]): r["final_acc"]
+                        for r in res.records if r["local"] == algo},
+            vs_run_compiled="bitwise"))
+    return dict(
+        phase="local", steps=steps, m=LOCAL_M, b=LOCAL_B, beta=LOCAL_BETA,
+        d=7850, axes=axes, local_lr=LOCAL_LR, prox_mu=PROX_MU,
+        dyn_alpha=DYN_ALPHA, p_avg=LOCAL_P_AVG,
+        config=dict(projection=cfg.projection, block_size=cfg.block_size,
+                    use_kernel=cfg.use_kernel, amp_iters=cfg.amp_iters),
+        launches=total, sweep_s=sweep_s, e1_pin="bitwise",
+        sgd_e1_is_awgn_run="bitwise", groups=groups)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sampled-cohort population engine
+# ---------------------------------------------------------------------------
+
+
+def run_population_phase(data, cfg, device, steps: int = STEPS,
+                         eval_every: int = 5, stop_at: int = 10):
+    """K == M against run_compiled, Fig. 10 FULL's largest sampled point,
+    churn with stragglers and edge sites, an avail_rate grid and a FedDyn
+    resume."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import population as pop_mod
+    from repro_torch.data.partition import population_partition
+    from repro_torch.experiments import engine, sweep
+    from repro_torch.population import engine as pop_engine
+
+    x_dev, y_dev, xte, yte = data
+    (xtr, ytr), _ = surrogate()
+    kw = dict(steps=steps, lr=1e-3, eval_every=eval_every, device=device)
+    total = {}
+    counted = launch_counter("population", total)
+
+    def same(a, b):
+        return (a.accs == b.accs and a.losses == b.losses
+                and a.all_losses.tolist() == b.all_losses.tolist()
+                and all(torch.equal(a.params[k], b.params[k])
+                        for k in a.params))
+
+    # (a) K == M = 25 on the slice's data is run_compiled bitwise
+    m = int(x_dev.shape[0])
+    dense = pop_mod.PopulationData.from_dense(x_dev, y_dev, device=device)
+    full, _ = counted(lambda: pop_mod.run_population(
+        dense, xte, yte, cfg, pop_mod.PopulationConfig(m_total=m,
+                                                       k_cohort=m), **kw),
+        steps)
+    comp = engine.run_compiled(x_dev, y_dev, xte, yte, cfg, **kw)
+    check(same(full, comp), "population: K == M is not run_compiled bitwise")
+
+    # (b) Fig. 10 FULL's largest sampled point
+    part = population_partition(ytr, m=POP_M, b=POP_B, kind="iid", seed=0)
+    pool = pop_mod.PopulationData.from_pool(xtr, ytr, part, device=device)
+    pop = pop_mod.PopulationConfig(m_total=POP_M, k_cohort=POP_K,
+                                   capacity=POP_CAPACITY)
+    torch.cuda.reset_peak_memory_stats()
+    big, _ = counted(lambda: pop_mod.run_population(
+        pool, xte, yte, cfg, pop, **kw), steps)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(big.all_losses)) and big.losses[-1]
+          < big.losses[0], f"population: loss did not fall {big.losses}")
+    exp = pop_mod.PopulationExperiment(cfg=cfg, pop=pop, steps=steps,
+                                       eval_every=eval_every)
+    cp = pop_mod.CompiledPopulation(pool, xte, yte, exp, device=device)
+    banks = cp.pstate0.banks
+    bank_bytes = banks.deltas.numel() * banks.deltas.element_size()
+    awgn_ce = engine.CompiledExperiment(
+        x_dev, y_dev, xte, yte, engine.Experiment(cfg=cfg, steps=steps,
+                                                  eval_every=eval_every),
+        device=device)
+    keys = engine.round_keys(steps, 0, device)
+    a_ms, p_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                lambda: cp.run({}, keys), reps=2)
+    runs = {"fig10_full_largest": dict(
+        m_total=POP_M, k_cohort=POP_K, b=POP_B, capacity=POP_CAPACITY,
+        bank_bytes=bank_bytes, peak_allocated_bytes=peak,
+        final_acc=big.accs[-1], accs=big.accs,
+        ms_per_round=p_ms / steps, awgn_ms_per_round=a_ms / steps)}
+
+    # (c) churn, stragglers and four edge sites: the mac hook runs
+    calls = []
+    inner = pop_engine.site_mac_sum
+
+    def spy(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    churned = dataclasses.replace(pop, avail_rate=0.9, speed_sigma=0.5,
+                                  straggler_deadline=5.0, n_sites=4)
+    pop_engine.site_mac_sum = spy
+    try:
+        run, n = counted(lambda: pop_mod.run_population(
+            pool, xte, yte, cfg, churned, **dict(kw, eval_every=1)), steps)
+    finally:
+        pop_engine.site_mac_sum = inner
+    check(len(calls) == steps, f"population: the site MAC ran {len(calls)} "
+          f"times in {steps} rounds")
+    check(all(np.isfinite(run.all_losses)),
+          f"population: non-finite losses {run.losses}")
+    cp2 = pop_mod.CompiledPopulation(pool, xte, yte, dataclasses.replace(
+        exp, pop=churned), device=device)
+    a_ms, c_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                lambda: cp2.run({}, keys), reps=2)
+    fracs = [mt["cohort_frac"] for mt in run.metrics]
+    runs["churn_stragglers_sites"] = dict(
+        avail_rate=0.9, speed_sigma=0.5, straggler_deadline=5.0, n_sites=4,
+        launches=n, site_mac_calls=len(calls),
+        mean_cohort_frac=float(np.mean(fracs)), min_cohort_frac=min(fracs),
+        final_acc=run.accs[-1], ms_per_round=c_ms / steps,
+        awgn_ms_per_round=a_ms / steps)
+
+    # (d) an avail_rate grid: each record its own run_population
+    res, _ = counted(lambda: sweep.run_population_sweep(
+        pool, (xte, yte), cfg, pop, {"avail_rate": list(POP_AVAIL_GRID)},
+        steps=steps, lr=1e-3, eval_every=eval_every, device=device), steps)
+    for rec in res.records:
+        one = pop_mod.run_population(pool, xte, yte, cfg, dataclasses.replace(
+            pop, avail_rate=rec["avail_rate"]), **kw)
+        check(rec["accs"] == one.accs and rec["losses"] == one.losses,
+              f"population grid avail_rate={rec['avail_rate']}: the record "
+              "is not its own run_population")
+    ov, gkeys = sweep.population_grid_inputs(
+        cp, [{"avail_rate": v} for v in POP_AVAIL_GRID], steps)
+    a_ms, g_ms = alternating_ms(lambda: awgn_ce.run({}, keys),
+                                lambda: cp.run_grid(ov, gkeys), reps=2)
+    grid = dict(axis="avail_rate", values=list(POP_AVAIL_GRID),
+                final_accs=[r["final_acc"] for r in res.records],
+                vs_run_population="bitwise",
+                ms_per_batched_round=g_ms / steps,
+                awgn_ms_per_round=a_ms / steps)
+
+    # (e) a FedDyn population run, checkpointed and resumed
+    dyn = dataclasses.replace(cfg, local="feddyn", local_epochs=2,
+                              dyn_alpha=DYN_ALPHA)
+    small = dataclasses.replace(pop, capacity=1024)
+    dkw = dict(kw, local_lr=LOCAL_LR)
+    whole, _ = counted(lambda: pop_mod.run_population(
+        pool, xte, yte, dyn, small, **dkw), steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(dkw, checkpoint_dir=tmp, checkpoint_every=eval_every)
+        stopped = pop_mod.run_population(pool, xte, yte, dyn, small,
+                                         stop_after_step=stop_at, **ck)
+        check(stopped is None, "population: the FedDyn run did not stop")
+        resumed = pop_mod.run_population(pool, xte, yte, dyn, small,
+                                         resume=True, **ck)
+    torch.cuda.synchronize()
+    check(same(resumed, whole), "population: the FedDyn resume is not "
+          "bitwise the uninterrupted run")
+    runs["feddyn_resumed"] = dict(capacity=1024, local_epochs=2,
+                                  dyn_alpha=DYN_ALPHA, final_acc=whole.accs[-1],
+                                  resumed="bitwise")
+    return dict(
+        phase="population", steps=steps, d=7850,
+        config=dict(projection=cfg.projection, block_size=cfg.block_size,
+                    use_kernel=cfg.use_kernel, amp_iters=cfg.amp_iters),
+        launches=total, k_equals_m_is_run_compiled="bitwise", runs=runs,
+        grid=grid)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1458,17 +1777,26 @@ def main() -> int:
                         rademacher=False),
         check_amp_fused(64, 1024, 256, 10, device, gen),
     ]
+    # the cohort widths of the local and population paths: Fig. 12's 20
+    # devices (a partial device tile of 4) and Fig. 10's K = 64 (8 full
+    # tiles), bitwise
+    cohort = [check_ota_project(20, n_blocks, c, s, cfg.rademacher, device,
+                                gen, bitwise=True),
+              check_ota_project(64, n_blocks, c, s, cfg.rademacher, device,
+                                gen, bitwise=True),
+              check_ef_sparsify(64, d, k, device, gen)]
     # a sweep's grid: G = 4 points of the main path's shapes
     points = check_amp_fused_points(4, n_blocks, c, s, cfg.amp_iters, device,
                                     gen)
     point_rows = check_point_rows(4, 25, d, n_blocks, c, s, k, device, gen)
     nonfinite = check_amp_fused_nonfinite(n_blocks, c, s, cfg.amp_iters,
                                           device, gen)
-    for rec in [*main_checks.values(), *extra, points]:
+    for rec in [*main_checks.values(), *extra, *cohort, points]:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
-              other_shapes=extra, point_axis=[points, point_rows],
-              nonfinite=nonfinite, not_ported=[]))
+              other_shapes=extra, cohort_widths=cohort,
+              point_axis=[points, point_rows], nonfinite=nonfinite,
+              not_ported=[]))
 
     data, sl = run_slice(device)
     emit(sl)
@@ -1482,10 +1810,15 @@ def main() -> int:
     emit(ch)
     rb = run_robust_phase(data, cfg, eng, device)
     emit(rb)
+    lo = run_local_phase(cfg, device)
+    emit(lo)
+    po = run_population_phase(data, cfg, device)
+    emit(po)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],
-             "channel": ch["launches"], "robust": rb["launches"]}
+             "channel": ch["launches"], "robust": rb["launches"],
+             "local": lo["launches"], "population": po["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]

@@ -35,9 +35,9 @@ scalars (``ROBUST_SCALARS``: the fault rates, the attack magnitude and the
 defences' trim fraction and caps) are held the same way, and
 :meth:`Scheme.fault_draw` deals a round's faults
 (:mod:`repro_torch.robust.faults`); the fault path itself runs in the
-engine's ``round_masked``.  The local-compute axis is not ported yet: a
-config that asks for it raises when its scheme is built, and never runs the
-plain path silently.
+engine's ``round_masked``.  :meth:`Scheme.cohort_channel_draw` and
+:meth:`Scheme.cohort_fault_draw` give a sampled cohort its rows of the
+full population's draws (:mod:`repro_torch.population`).
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ from repro_torch.configs.base import OTAConfig
 from repro_torch.core import channel, compression, fading, geometry, power
 from repro_torch.core.amp import amp_decode
 from repro_torch.core.projection import DenseProjector, make_projector
-from repro_torch.device import div_f32, per_point, resolve_device
+from repro_torch.device import div_f32, per_point, resolve_device, take
 from repro_torch.kernels import ops
 from repro_torch.robust import faults
 
@@ -135,14 +135,6 @@ def get_scheme(cfg: OTAConfig, d: int, m: int, device=None) -> "Scheme":
     return cls(cfg, d, m, device=device)
 
 
-def _unported_axes(cfg: OTAConfig) -> Tuple[str, ...]:
-    """The configured axes the port cannot run yet."""
-    bad = []
-    if cfg.local != "sgd" or cfg.local_epochs != 1:
-        bad.append(f"local={cfg.local!r}, local_epochs={cfg.local_epochs}")
-    return tuple(bad)
-
-
 class Scheme:
     """Base class: state/schedule plumbing and the generic hooks."""
 
@@ -152,10 +144,6 @@ class Scheme:
     csi: str = "perfect"
 
     def __init__(self, cfg: OTAConfig, d: int, m: int, device=None):
-        bad = _unported_axes(cfg)
-        if bad:
-            raise NotImplementedError(
-                f"scheme {self.name!r}: not ported yet: {', '.join(bad)}")
         self.cfg = cfg
         self.d = d
         self.m = m
@@ -275,6 +263,33 @@ class Scheme:
                 p_factor=draw.p_factor * self.geometry_gains(m))
         return draw
 
+    def cohort_channel_draw(self, key: torch.Tensor, step,
+                            cohort: torch.Tensor, m_total: int,
+                            mask=None) -> ChannelDraw:
+        """The K-cohort's rows of the full-population channel realisation.
+
+        :meth:`channel_draw` at the population size ``m_total`` from the
+        same salted key, then the cohort's rows, so a K < M cohort sees
+        the channels the full simulation deals those devices and a K == M
+        cohort (``arange(M)``) the dense draw bitwise.  ``mask`` (K,) bool
+        marks live cohort rows; it is scattered to the full population so
+        that draws which couple devices (the blind PS combiner) see the
+        true transmitter set.  A ``(G, K)`` cohort (and mask) with ``(G,
+        2)`` keys gives each point its own rows.
+        """
+        full_mask = None
+        if mask is not None:
+            full_mask = torch.zeros((*cohort.shape[:-1], m_total),
+                                    dtype=torch.bool, device=cohort.device)
+            full_mask = full_mask.scatter(-1, cohort, mask)
+        draw = self.channel_draw(key, step, m_total, mask=full_mask)
+
+        def rows(v):
+            return None if v is None else take(v, cohort, v.dim() - 1)
+        return ChannelDraw(rows(draw.p_factor), rows(draw.active),
+                           gain=rows(draw.gain),
+                           noise_scale=draw.noise_scale)
+
     def silent_state(self, g, state, new_state):
         """Error state of a non-participating (deep-fade, dropout, or
         unscheduled) device."""
@@ -302,6 +317,13 @@ class Scheme:
                                  fault_rate=self.fault_rate,
                                  erasure_prob=self.erasure_prob,
                                  fault_kind=self.cfg.fault_kind)
+
+    def cohort_fault_draw(self, key: torch.Tensor, step,
+                          cohort: torch.Tensor,
+                          m_total: int) -> faults.FaultDraw:
+        """The K-cohort's rows of the full-population fault realisation,
+        the fault analogue of :meth:`cohort_channel_draw`."""
+        return faults.take_rows(self.fault_draw(key, step, m_total), cohort)
 
     def encode(self, g: torch.Tensor, state: torch.Tensor, step: int,
                keys: torch.Tensor, ctx: Optional[MACContext] = None):

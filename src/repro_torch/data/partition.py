@@ -18,12 +18,19 @@ entry point :func:`make_partition`:
 
 All three are deterministic given ``seed`` and draw exactly what the
 reference draws, so the two packages split the same data the same way.
+
+For M-large populations (:mod:`repro_torch.population`),
+:class:`PopulationPartition` assigns shards by index arithmetic: O(N + C)
+arrays, and a cohort's ``(K, B)`` rows computed on demand, on the device,
+inside the round.  :func:`label_bias` measures a split's bias.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 PARTITION_KINDS = ("iid", "label_shards", "dirichlet")
 
@@ -167,3 +174,148 @@ def make_partition(x: np.ndarray, y: np.ndarray, m: int, b: int,
         raise ValueError(
             f"unknown partition kind {kind!r}; known: {PARTITION_KINDS}")
     return x[idx], y[idx]
+
+
+# ---------------------------------------------------------------------------
+# population-scale shard assignment (repro_torch.population): O(M) arithmetic
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PopulationPartition:
+    """Shard assignment for an M-large population as index arithmetic.
+
+    ``iid``
+        one (N,) permutation ``order``; device m's j-th sample is
+        ``order[(m*B + j) mod N]``: consecutive windows of one shuffled
+        epoch, wrapping once M*B > N.
+
+    ``label_shards``
+        global shard ``t = m*spd + s`` holds class ``class_perm[t mod C]``,
+        and the ``u = t div C``-th use of a class reads rows ``[u*per,
+        u*per + per)`` of that class's shuffled pool, wrapping mod the pool
+        size.
+
+    :meth:`sample_indices` is gather and mod arithmetic on the device of
+    the ids it is given, so the population engine computes a cohort's
+    ``(K, B)`` rows in the round and nothing (M, B)-sized exists.  The
+    arrays are numpy, as the reference's; their device copies are made
+    once per device.
+    """
+
+    kind: str
+    m: int
+    b: int
+    n: int
+    n_classes: int = 0
+    order: Optional[np.ndarray] = None       # (N,) iid sample permutation
+    class_perm: Optional[np.ndarray] = None  # (C,) label_shards class cycle
+    pools: Optional[np.ndarray] = None       # (C, P) padded per-class pools
+    sizes: Optional[np.ndarray] = None       # (C,) true pool sizes
+    shards_per_device: int = 0
+    _tables: Dict = field(default_factory=dict, compare=False, repr=False)
+
+    def tables(self, device) -> Dict[str, torch.Tensor]:
+        """The index arrays as int64 tensors on ``device``, copied once."""
+        dev = torch.device(device)
+        key = str(dev)
+        if key not in self._tables:
+            names = (("order",) if self.kind == "iid"
+                     else ("class_perm", "pools", "sizes"))
+            self._tables[key] = {
+                k: torch.from_numpy(np.asarray(getattr(self, k),
+                                               np.int64)).to(dev)
+                for k in names}
+        return self._tables[key]
+
+    def sample_indices(self, devices) -> torch.Tensor:
+        """(K, B) training-set rows of the device ids ``devices`` (K,);
+        ``(G, K, B)`` for ``(G, K)`` ids."""
+        dev = torch.as_tensor(devices).long()
+        tab = self.tables(dev.device)
+        dev = dev[..., None]
+        j = torch.arange(self.b, dtype=torch.int64, device=dev.device)
+        if self.kind == "iid":
+            return tab["order"][(dev * self.b + j) % self.n]
+        per = self.b // self.shards_per_device
+        t = dev * self.shards_per_device + j // per
+        cls = tab["class_perm"][t % self.n_classes]
+        pos = ((t // self.n_classes) * per + j % per) % tab["sizes"][cls]
+        return tab["pools"][cls, pos]
+
+    def device_labels(self, device: int) -> np.ndarray:
+        """The distinct classes device ``device`` holds (host helper)."""
+        if self.kind == "iid":
+            raise ValueError("iid devices have no fixed class set")
+        t = device * self.shards_per_device + np.arange(
+            self.shards_per_device)
+        return np.asarray(self.class_perm)[t % self.n_classes]
+
+
+def population_partition(y: np.ndarray, m: int, b: int, kind: str = "iid",
+                         shards_per_device: int = 2, n_classes: int = 0,
+                         seed: int = 0) -> PopulationPartition:
+    """Build a :class:`PopulationPartition` in O(N + C), no (M, B) table.
+
+    ``dirichlet`` is unsupported at population scale, as in the reference:
+    its per-device proportion draws are O(M * C) state with no arithmetic
+    shortcut.
+    """
+    n = len(y)
+    if kind == "iid":
+        return PopulationPartition(kind="iid", m=m, b=b, n=n,
+                                   order=_rng(seed).permutation(n))
+    if kind == "label_shards":
+        n_classes = n_classes or int(y.max()) + 1
+        if shards_per_device > n_classes:
+            raise ValueError(
+                f"population label_shards needs shards_per_device <= "
+                f"n_classes; got {shards_per_device} > {n_classes}")
+        if b % shards_per_device:
+            raise ValueError(
+                f"population label_shards needs shards_per_device | b; "
+                f"got B={b}, spd={shards_per_device}")
+        rng = _rng(seed)
+        pools_l = [rng.permutation(np.flatnonzero(y == c))
+                   for c in range(n_classes)]
+        sizes = np.asarray([len(p) for p in pools_l], np.int64)
+        if sizes.min() == 0:
+            raise ValueError("every class needs at least one sample")
+        pools = np.zeros((n_classes, int(sizes.max())), np.int64)
+        for c, p in enumerate(pools_l):
+            pools[c, :len(p)] = p
+        return PopulationPartition(
+            kind="label_shards", m=m, b=b, n=n, n_classes=n_classes,
+            class_perm=rng.permutation(n_classes), pools=pools, sizes=sizes,
+            shards_per_device=shards_per_device)
+    raise ValueError(
+        f"unknown population partition kind {kind!r}; known: "
+        "('iid', 'label_shards')")
+
+
+def population_label_bias(part: PopulationPartition, y: np.ndarray,
+                          devices=None, n_classes: int = 0) -> float:
+    """:func:`label_bias` of a population split, from a device subsample:
+    only the sampled devices' label rows (O(K * B)) are materialised."""
+    devices = (np.arange(part.m) if devices is None
+               else np.asarray(devices))
+    idx = part.sample_indices(torch.from_numpy(devices)).numpy()
+    return label_bias(np.asarray(y)[idx], n_classes)
+
+
+def label_bias(y_dev: np.ndarray, n_classes: int = 0) -> float:
+    """Mean total-variation distance device-histogram vs global histogram.
+
+    0 for IID class marginals; approaches (C-1)/C as every device collapses
+    onto a single class.
+    """
+    n_classes = n_classes or int(y_dev.max()) + 1
+    global_h = np.bincount(y_dev.reshape(-1), minlength=n_classes).astype(
+        np.float64)
+    global_h /= global_h.sum()
+    tvs = []
+    for dev in range(y_dev.shape[0]):
+        h = np.bincount(y_dev[dev], minlength=n_classes).astype(np.float64)
+        h /= h.sum()
+        tvs.append(0.5 * np.abs(h - global_h).sum())
+    return float(np.mean(tvs))

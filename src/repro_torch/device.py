@@ -124,3 +124,22 @@ def xla_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for i in range(1, n):
         acc = acc + x[i]
     return acc
+
+
+def lead(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A 0-dim or ``(G,)`` scalar shaped to broadcast along ``x``'s
+    trailing axes (one value per point of a grid)."""
+    return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
+
+
+def take(v: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The rows ``idx`` of ``v`` along its device axis ``dim`` (0 without a
+    point axis, 1 with one), trailing axes kept: ``jnp.take(v, idx,
+    axis=dim)``.  A ``(G, K)`` ``idx`` takes one cohort per point, from a
+    ``v`` with or without the point axis."""
+    if idx.dim() == 1:
+        return v.index_select(dim, idx)
+    if dim == 0:
+        return v[idx]
+    ix = idx.reshape(idx.shape + (1,) * (v.dim() - dim - 1))
+    return torch.gather(v, dim, ix.expand(*idx.shape, *v.shape[dim + 1:]))

@@ -36,11 +36,11 @@ the six channel scalars and the seven robustness scalars as overrides
 (0-dim for a run, ``(G,)`` for a grid), the subband scheduler with its
 carried state, fault injection, robust aggregation and the transmit power
 cap in :func:`round_masked`, the round guardrails
-(:mod:`repro_torch.robust.guards`) with their state in the carry, and the
-identity local work.  The local-compute overrides, the ``mac`` hook of
-:func:`round_masked` (hierarchical sites) and any local work but one plain
-SGD step raise ``NotImplementedError``; none of them quietly takes another
-path.
+(:mod:`repro_torch.robust.guards`) with their state in the carry, the
+local-compute axis (:mod:`repro_torch.local`: FedAvg-E, FedProx, FedDyn
+with its duals in the carry, and the three knobs as overrides), and the
+``mac`` hook of :func:`round_masked` through which the population engine's
+hierarchical sites sum (:mod:`repro_torch.population`).
 """
 from __future__ import annotations
 
@@ -61,11 +61,14 @@ from repro_torch.core.schemes import (
     get_scheme, round_sigma2, round_simulated,
 )
 from repro_torch.device import resolve_device
+from repro_torch.local.work import (
+    LOCAL_OVERRIDE_ATTRS, LocalWork, get_local, local_device_grads,
+)
 from repro_torch.optim.optim import Optimizer
 from repro_torch.robust import aggregators, faults, guards
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.train.paper_repro import (
-    accuracy, ce_loss, device_grads, init_linear,
+    accuracy, ce_loss, device_grads, flat_grad_fn, init_linear,
 )
 
 #: base of the per-round key stream; round t of seed 0 uses PRNGKey(1000 + t),
@@ -79,13 +82,10 @@ KEY_STREAM_BASE = 1000
 CHANNEL_OVERRIDE_ATTRS = CHANNEL_SCALARS
 ROBUST_OVERRIDE_ATTRS = ROBUST_SCALARS
 SCALAR_OVERRIDE_ATTRS = CHANNEL_OVERRIDE_ATTRS + ROBUST_OVERRIDE_ATTRS
-#: the overrides a run accepts: the per-point schedules of the sweeps and
-#: the scheme's scalars
+#: the scheme overrides a run accepts: the per-point schedules of the
+#: sweeps and the scheme's scalars (the local-compute knobs,
+#: ``LOCAL_OVERRIDE_ATTRS``, land on the run's LocalWork)
 OVERRIDE_ATTRS = ("p_sched", "q_sched") + SCALAR_OVERRIDE_ATTRS
-#: the reference's local-compute knobs, one traced scalar each, whose axis
-#: is not ported yet
-LOCAL_OVERRIDE_ATTRS = ("local_epochs", "prox_mu", "dyn_alpha")
-UNPORTED_OVERRIDE_ATTRS = LOCAL_OVERRIDE_ATTRS
 
 
 def round_keys(steps: int, seed: int = 0, device=None) -> torch.Tensor:
@@ -152,8 +152,9 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     the channel draw sees the mask, so the blind PS combiner excludes
     devices that do not exist.  ``sched`` (M_pad,) bool is the subband
     scheduler's transmit set: an unscheduled device is silenced like a
-    deep-faded one and banks its whole update.  The ``mac`` hook
-    (hierarchical sites) is not ported yet and raises.
+    deep-faded one and banks its whole update.  ``mac``, a callable
+    ``(frames, mac_key, sigma2) -> y``, replaces the flat analog MAC sum
+    (the population engine's hierarchical edge sites).
 
     Fault injection (:mod:`repro_torch.robust`) runs when the static
     ``scheme.robust_on`` is set, in the reference's order: Byzantine and
@@ -170,10 +171,6 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     and one mask per point (G, M_pad); each point decodes against its own
     ``m_eff``.
     """
-    if mac is not None:
-        raise NotImplementedError(
-            "round_masked: the 'mac' hook (hierarchical sites) is not "
-            "ported yet")
     cfg = scheme.cfg
     m_pad = grads.shape[-2]
     mask_b = mask > 0
@@ -224,8 +221,10 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
                                                      new_deltas))
         active = active & mask_b
         frames = apply_channel_gain(frames, draw._replace(active=active))
-        y = channel.mac_sum(frames, rng.fold_in(key, 0),
-                            round_sigma2(scheme, draw))
+        mac_key = rng.fold_in(key, 0)
+        sigma2 = round_sigma2(scheme, draw)
+        y = (channel.mac_sum(frames, mac_key, sigma2) if mac is None
+             else mac(frames, mac_key, sigma2))
     else:
         if robust:
             # a dropout knows it failed and banks its whole update; erased
@@ -273,6 +272,29 @@ def round_masked(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def apply_overrides(scheme: Scheme, localwork: LocalWork,
+                    overrides: Dict[str, Any], device):
+    """``(scheme, localwork)`` with a run's overrides swapped on: schedules
+    and the channel and robustness scalars onto the scheme, the
+    local-compute knobs onto the local work, each scalar as a float32
+    tensor on ``device``."""
+    sch_ov, lw_ov = {}, {}
+    for name, value in overrides.items():
+        if name in LOCAL_OVERRIDE_ATTRS:
+            lw_ov[name] = value
+        elif name not in OVERRIDE_ATTRS:
+            raise AttributeError(
+                f"scheme {scheme.name!r} has no attribute {name!r} to "
+                "override")
+        elif name in SCALAR_OVERRIDE_ATTRS:
+            sch_ov[name] = torch.as_tensor(value, dtype=torch.float32,
+                                           device=device)
+        else:
+            sch_ov[name] = value
+    return (scheme.with_overrides(**sch_ov) if sch_ov else scheme,
+            localwork.with_overrides(**lw_ov) if lw_ov else localwork)
+
+
 def _stack_outs(outs: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Per-round output dicts -> one dict of (rounds,) device tensors."""
     return {"acc": torch.stack([o["acc"] for o in outs]),
@@ -294,14 +316,17 @@ class CompiledExperiment:
 
     :meth:`run_segment` is the segment contract the checkpoint driver
     needs: rounds ``t0 .. t0 + len(keys)`` from an explicit carry
-    ``(params, opt_state, deltas, momenta)``, followed by prop_fair's
+    ``(params, opt_state, deltas, momenta)``, followed by FedDyn's ``(M,
+    d)`` duals when the local algorithm carries them, by prop_fair's
     ``(M,)`` scheduler state when the configuration schedules with it, and
     by a :class:`~repro_torch.robust.guards.GuardState` when ``exp.guard``
     is set (the reference's carry).  ``overrides`` swaps schedules
     (``p_sched`` (T,), ``q_sched`` (T,)) and 0-dim channel and robustness
-    scalars onto the scheme through :meth:`Scheme.with_overrides`.
-    :meth:`run_grid` runs G points, each with its own ``(T,)`` schedules,
-    keys and mask, as one batched round per step.
+    scalars onto the scheme through :meth:`Scheme.with_overrides`, and the
+    local-compute knobs (``LOCAL_OVERRIDE_ATTRS``) onto the run's
+    :class:`~repro_torch.local.work.LocalWork`.  :meth:`run_grid` runs G
+    points, each with its own ``(T,)`` schedules, scalars, keys and mask,
+    as one batched round per step.
 
     A robust scheme (``scheme.robust_on``) takes :func:`round_masked` with
     an all-ones mask, as in the reference; a guard adds the columns
@@ -313,11 +338,6 @@ class CompiledExperiment:
                  x_test: np.ndarray, y_test: np.ndarray, exp: Experiment,
                  device=None):
         cfg = exp.cfg
-        if exp.local_steps > 1 or cfg.local != "sgd" or cfg.local_epochs != 1:
-            raise NotImplementedError(
-                "only the identity local work (one SGD gradient per round) "
-                f"is ported; got local={cfg.local!r}, local_epochs="
-                f"{cfg.local_epochs}, local_steps={exp.local_steps}")
         self.device = resolve_device(device)
         m, _, dim = x_dev.shape
         self.exp = exp
@@ -326,6 +346,13 @@ class CompiledExperiment:
         self.params0 = init_linear(dim, n_classes, self.device)
         self.d = ravel(self.params0).shape[0]
         self.scheme = get_scheme(cfg, self.d, m, device=self.device)
+        self.localwork = get_local(cfg, exp.local_lr, device=self.device)
+        if not self.localwork.identity and exp.local_steps > 1:
+            raise ValueError(
+                "local_steps > 1 (the legacy FedAvg path) conflicts with "
+                f"the configured local algorithm {cfg.local!r} at "
+                f"local_epochs={cfg.local_epochs}; use cfg.local_epochs")
+        self._grad_fn = flat_grad_fn(self.params0)
         # "none" resolves to None: no scheduling op runs
         self.scheduler = scheduling.get_scheduler(cfg)
         self.opt = Optimizer(name=exp.optimizer, lr=exp.lr)
@@ -340,54 +367,68 @@ class CompiledExperiment:
     @property
     def _sched_state(self) -> bool:
         """Whether a scheduler state vector rides the carry (after the
-        deltas and momenta)."""
+        duals, before the guard state)."""
         return self.scheduler is not None and self.scheduler.has_state
 
-    def carry0(self):
-        zeros = torch.zeros((self.m, self.d), dtype=torch.float32,
+    def _carry(self, points=None):
+        """The initial carry, with a leading point axis on every leaf for
+        ``points`` (the optimizer's step count is shared by all points
+        unless a guard may skip one point's step)."""
+        if points is None:
+            params = self.params0
+        else:
+            params = {k: v.expand(points, *v.shape).clone()
+                      for k, v in self.params0.items()}
+        lead = () if points is None else (points,)
+        zeros = torch.zeros((*lead, self.m, self.d), dtype=torch.float32,
                             device=self.device)
-        carry = (self.params0, self.opt.init(self.params0), zeros,
-                 zeros.clone())
+        opt_state = self.opt.init(params)
+        if points is not None and self.exp.guard is not None:
+            opt_state["count"] = opt_state["count"].expand(points).clone()
+        carry = (params, opt_state, zeros, zeros.clone())
+        if self.localwork.has_dual:
+            carry = carry + (self.localwork.init_dual(self.m, self.d,
+                                                      points),)
         if self._sched_state:
-            carry = carry + (self.scheduler.init_state(self.m, self.device),)
+            sstate = self.scheduler.init_state(self.m, self.device)
+            if points is not None:
+                sstate = sstate.expand(points, self.m).clone()
+            carry = carry + (sstate,)
         if self.exp.guard is not None:
-            carry = carry + (guards.init_guard_state(device=self.device),)
+            carry = carry + (guards.init_guard_state(points, self.device),)
         return carry
+
+    def carry0(self):
+        return self._carry()
 
     #: the reference's name for :meth:`carry0`
     _carry0 = carry0
 
-    def _scheme_for(self, overrides: Dict[str, Any]) -> Scheme:
-        """The scheme with the run's overrides swapped on; a channel or
-        robustness scalar becomes a float32 tensor on the run's device."""
-        overrides = dict(overrides)
-        for name in overrides:
-            if name in UNPORTED_OVERRIDE_ATTRS:
-                raise NotImplementedError(
-                    f"override {name!r} needs an axis that is not ported "
-                    "yet")
-            if name not in OVERRIDE_ATTRS:
-                raise AttributeError(
-                    f"scheme {self.scheme.name!r} has no attribute {name!r} "
-                    "to override")
-            if name in SCALAR_OVERRIDE_ATTRS:
-                overrides[name] = torch.as_tensor(
-                    overrides[name], dtype=torch.float32, device=self.device)
-        return (self.scheme.with_overrides(**overrides) if overrides
-                else self.scheme)
-
-    def _round(self, sch: Scheme, carry, t: int, key: torch.Tensor, mask):
+    def _round(self, sch: Scheme, lw: LocalWork, carry, t: int,
+               key: torch.Tensor, mask):
         """One round of one point, or of G points when the carry, ``key``
-        (G, 2), ``mask`` (G, M_pad) and the scheme's schedules carry a
-        leading point axis: the same code either way."""
+        (G, 2), ``mask`` (G, M_pad) and the overrides carry a leading point
+        axis: the same code either way."""
+        exp = self.exp
         params, opt_state, deltas, momenta = carry[:4]
-        sstate = carry[4] if self._sched_state else None
-        gstate = carry[-1] if self.exp.guard is not None else None
-        old_extras = (deltas, momenta) + ((sstate,) if self._sched_state
-                                          else ())
-        grads, momenta = device_grads(
-            params, self.xd, self.yd, momenta,
-            momentum_correction=self.exp.momentum_correction)
+        duals = carry[4] if lw.has_dual else None
+        sstate = carry[4 + lw.has_dual] if self._sched_state else None
+        gstate = carry[-1] if exp.guard is not None else None
+        old_extras = ((deltas, momenta) + ((duals,) if lw.has_dual else ())
+                      + ((sstate,) if self._sched_state else ()))
+        if lw.identity:
+            grads, momenta = device_grads(
+                params, self.xd, self.yd, momenta,
+                local_steps=exp.local_steps, local_lr=exp.local_lr,
+                momentum_correction=exp.momentum_correction)
+        else:
+            grads, momenta, new_duals = local_device_grads(
+                lw, self._grad_fn, params, self.xd, self.yd, momenta,
+                duals, momentum_correction=exp.momentum_correction)
+            if lw.has_dual:
+                # a padded device's dual must not evolve
+                duals = (new_duals if mask is None else torch.where(
+                    (mask > 0)[..., None], new_duals, duals))
         if self.scheduler is not None:
             # the scheduler ranks on this round's received-power factors, so
             # the channel draw is made here, the one round_masked would make
@@ -419,7 +460,8 @@ class CompiledExperiment:
                 device=self.device))
             ghat, deltas, met = round_masked(sch, grads, deltas, t, key,
                                              rmask, self.ctx)
-        extras = (deltas, momenta) + ((sstate,) if self._sched_state else ())
+        extras = ((deltas, momenta) + ((duals,) if lw.has_dual else ())
+                  + ((sstate,) if self._sched_state else ()))
         if gstate is None:
             params, opt_state = self.opt.apply(
                 params, unravel(ghat, params, batch_dims=ghat.dim() - 1),
@@ -430,7 +472,7 @@ class CompiledExperiment:
             return (params, opt_state) + extras, out
         # a skipped or reverted round restores the pre-round extras whole
         params, opt_state, extras, gstate, loss, gmet = guards.guarded_step(
-            self.exp.guard, gstate, self.opt, params, opt_state, ghat,
+            exp.guard, gstate, self.opt, params, opt_state, ghat,
             lambda v: unravel(v, params, batch_dims=v.dim() - 1),
             extras=extras, old_extras=old_extras,
             loss_fn=lambda p: ce_loss(p, self.xt, self.yt))
@@ -447,13 +489,15 @@ class CompiledExperiment:
         function of ``(carry, t, key)``), so splitting a run at any boundary
         and resuming from the saved carry reproduces it bitwise.  Returns
         ``(carry, outs)`` with outs of ``(len(keys),)`` device tensors.
-        ``overrides`` swaps ``(T,)`` schedules onto the scheme, as the
-        reference's ``run_segment`` does.
+        ``overrides`` swaps ``(T,)`` schedules and 0-dim scalars onto the
+        scheme and the local work, as the reference's ``run_segment`` does.
         """
-        sch = self._scheme_for(overrides)
+        sch, lw = apply_overrides(self.scheme, self.localwork, overrides,
+                                  self.device)
         outs = []
         for i in range(keys.shape[0]):
-            carry, out = self._round(sch, carry, int(t0) + i, keys[i], mask)
+            carry, out = self._round(sch, lw, carry, int(t0) + i, keys[i],
+                                     mask)
             outs.append(out)
         return carry, _stack_outs(outs)
 
@@ -478,20 +522,7 @@ class CompiledExperiment:
         axis, except the optimizer's step count, which all points share
         unless a guard may skip one point's step (then one per point, as
         the guard state)."""
-        params = {k: v.expand(points, *v.shape).clone()
-                  for k, v in self.params0.items()}
-        zeros = torch.zeros((points, self.m, self.d), dtype=torch.float32,
-                            device=self.device)
-        opt_state = self.opt.init(params)
-        if self.exp.guard is not None:
-            opt_state["count"] = opt_state["count"].expand(points).clone()
-        carry = (params, opt_state, zeros, zeros.clone())
-        if self._sched_state:
-            carry = carry + (self.scheduler.init_state(
-                self.m, self.device).expand(points, self.m).clone(),)
-        if self.exp.guard is not None:
-            carry = carry + (guards.init_guard_state(points, self.device),)
-        return carry
+        return self._carry(points)
 
     def run_grid(self, overrides: Dict[str, Any], keys: torch.Tensor,
                  masks: Optional[torch.Tensor] = None):
@@ -500,24 +531,26 @@ class CompiledExperiment:
 
         ``overrides`` holds ``(G, T)`` schedules (``p_sched``, and
         ``q_sched`` for the digital schemes, whose static ``q_max`` the
-        caller sets to cover the grid) and ``(G,)`` channel and robustness
-        scalars,
-        ``keys`` is ``(G, T, 2)`` and
-        ``masks`` an optional ``(G, M_pad)``.  Each point equals its own
-        :meth:`run` (or :meth:`run_masked`) with its own schedules, keys
-        and mask.  Returns ``{"acc": (G, T), "loss": (G, T), "metrics":
-        {...: (G, T)}, "params": dict of (G, ...)}``, on the device.
+        caller sets to cover the grid), ``(G,)`` channel and robustness
+        scalars and ``(G,)`` local-compute knobs (a ``local_epochs`` grid
+        needs ``localwork.max_epochs`` at its maximum), ``keys`` is
+        ``(G, T, 2)`` and ``masks`` an optional ``(G, M_pad)``.  Each point
+        equals its own :meth:`run` (or :meth:`run_masked`) with its own
+        schedules, keys and mask.  Returns ``{"acc": (G, T), "loss": (G,
+        T), "metrics": {...: (G, T)}, "params": dict of (G, ...)}``, on
+        the device.
         """
         points, steps = keys.shape[:2]
         for name, v in overrides.items():
             if v.shape[0] != points:
                 raise ValueError(f"run_grid: override {name!r} has "
                                  f"{v.shape[0]} points, keys {points}")
-        sch = self._scheme_for(overrides)
+        sch, lw = apply_overrides(self.scheme, self.localwork, overrides,
+                                  self.device)
         carry = self.carry0_grid(points)
         outs = []
         for t in range(steps):
-            carry, out = self._round(sch, carry, t, keys[:, t], masks)
+            carry, out = self._round(sch, lw, carry, t, keys[:, t], masks)
             outs.append(out)
         outs = _stack_outs(outs)
         grid = {"acc": outs["acc"].T, "loss": outs["loss"].T,

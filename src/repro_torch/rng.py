@@ -463,19 +463,51 @@ _NEXT_ABOVE_MINUS_ONE = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
 
 
+def normal_over_sqrt2(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``erf_inv(u)``, the draw of ``jax.random.normal`` before its factor
+    ``sqrt(2)``, which XLA moves onto a constant or traced scale that
+    multiplies the draw (:func:`normal_scaled`)."""
+    return erf_inv(uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0))
+
+
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """float32 ``jax.random.normal``."""
-    u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
-    return _SQRT2_F32 * erf_inv(u)
+    return _SQRT2_F32 * normal_over_sqrt2(key, shape)
 
 
-def normal_scaled(key: torch.Tensor, shape: Shape, scale: float
-                  ) -> torch.Tensor:
-    """``jax.random.normal(key, shape) * scale`` for a constant ``scale``, as
-    XLA compiles it inside ``jit``: the constant folds into the draw's own
-    ``sqrt(2)``, so the draw is ``erf_inv(u) * f32(sqrt(2) * scale)``, one
-    rounding fewer than ``normal(key, shape) * scale``.  A division by a
+def sqrt2_times(scale: torch.Tensor) -> torch.Tensor:
+    """``f32(scale * sqrt(2))``: a scale with the normal draw's constant
+    moved onto it."""
+    return scale.to(torch.float32) * _SQRT2_F32
+
+
+def normal_scaled(key: torch.Tensor, shape: Shape, scale) -> torch.Tensor:
+    """``jax.random.normal(key, shape) * scale`` as XLA compiles it inside
+    ``jit``: the draw's own constant ``sqrt(2)`` moves onto ``scale``, so
+    the draw is ``erf_inv(u) * f32(sqrt(2) * scale)``, one rounding fewer
+    than ``normal(key, shape) * scale``.  ``scale`` is a constant, or a
+    0-dim or ``(G,)`` float32 tensor (traced: XLA moves the constant all
+    the same), one per key of a ``(G, ..., 2)`` stack.  A division by a
     constant ``c`` compiles as the product with ``f32(1 / c)``."""
-    u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
-    c = float(np.float32(_SQRT2_F32) * np.float32(scale))
-    return erf_inv(u) * c
+    e = normal_over_sqrt2(key, shape)
+    if isinstance(scale, torch.Tensor):
+        c = sqrt2_times(scale)
+        return e * c.reshape(c.shape + (1,) * (e.dim() - c.dim()))
+    return e * float(np.float32(_SQRT2_F32) * np.float32(scale))
+
+
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """float32 ``jax.random.gumbel`` in its default ``"low"`` mode:
+    ``-log(-log(u))`` for ``u = uniform(key, shape, tiny, 1)``, with XLA's
+    float32 ``log``."""
+    u = uniform(key, shape, _TINY_F32, 1.0)
+    return -log_f32(-log_f32(u))
+
+
+def exponential(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """float32 ``jax.random.exponential``: ``-log1p(-u)`` for ``u =
+    uniform(key, shape)``."""
+    return -log1p(-uniform(key, shape))

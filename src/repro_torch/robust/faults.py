@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import rng
+from repro_torch.device import take
 
 #: round-key salt owned by the fault layer (0 MAC AWGN, 1 encode, 2 channel
 #: draw, 3 availability, 4 cohort sampling, 5 straggler latency)
@@ -125,6 +126,7 @@ def apply_frame_faults(frames: torch.Tensor, fault: FaultDraw) -> torch.Tensor:
 
 
 def take_rows(fault: FaultDraw, cohort: torch.Tensor) -> FaultDraw:
-    """The cohort's rows of a full-population fault draw."""
-    return FaultDraw(*(torch.index_select(v, -1, cohort)
-                       for v in fault[:5]), fault.poison_value)
+    """The cohort's rows of a full-population fault draw; a ``(G, K)``
+    cohort takes each point's own rows."""
+    return FaultDraw(*(take(v, cohort, v.dim() - 1) for v in fault[:5]),
+                     fault.poison_value)

@@ -36,7 +36,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import rng
-from repro_torch.device import sqrt_f32, xla_sum
+from repro_torch.device import lead, sqrt_f32, xla_sum
 
 
 @dataclass(frozen=True)
@@ -69,12 +69,6 @@ def init_guard_state(points=None, device=None) -> GuardState:
                       backoffs=full(0.0))
 
 
-def _lead(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """A 0-dim or ``(G,)`` value shaped to broadcast along ``leaf``'s
-    trailing axes."""
-    return v.reshape(v.shape + (1,) * (leaf.dim() - v.dim()))
-
-
 def _select(ok: torch.Tensor, new: Any, old: Any) -> Any:
     """``new`` where ``ok``, else ``old``, leaf by leaf through dicts and
     tuples (a NamedTuple keeps its class)."""
@@ -83,7 +77,7 @@ def _select(ok: torch.Tensor, new: Any, old: Any) -> Any:
     if isinstance(new, tuple):
         items = [_select(ok, n, o) for n, o in zip(new, old)]
         return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
-    return torch.where(_lead(ok, new), new, old)
+    return torch.where(lead(ok, new), new, old)
 
 
 def guarded_step(guard: GuardConfig, gstate: GuardState, opt, params,
@@ -112,7 +106,7 @@ def guarded_step(guard: GuardConfig, gstate: GuardState, opt, params,
     steps, o1 = opt.steps(params, unravel(ghat_safe), opt_state)
     # the backoff blends the step: p0 + lr_scale * (p1 - p0), where XLA
     # folds p1 - p0 into -step and fuses the rest into one multiply-add
-    p1 = {k: rng.fma_f32(_lead(gstate.lr_scale, p), -steps[k], p)
+    p1 = {k: rng.fma_f32(lead(gstate.lr_scale, p), -steps[k], p)
           for k, p in params.items()}
 
     false = torch.zeros_like(finite)

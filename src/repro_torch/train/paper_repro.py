@@ -31,7 +31,9 @@ from repro_torch.configs.base import OTAConfig
 from repro_torch.convert import ravel, unravel
 from repro_torch.core.schemes import Scheme, get_scheme, round_simulated
 from repro_torch.device import per_point, resolve_device
+from repro_torch.local.work import get_local, local_device_grads
 from repro_torch.optim.optim import Optimizer
+from repro_torch.rng import fma_f32
 
 
 def init_linear(dim: int, n_classes: int, device=None) -> Dict[str, torch.Tensor]:
@@ -89,10 +91,70 @@ class FederatedRun:
     params: Optional[Dict[str, torch.Tensor]] = None
     opt_state: Optional[dict] = None
     deltas: Optional[torch.Tensor] = None
+    duals: Optional[torch.Tensor] = None
+
+
+def _softmax_grads(xd: torch.Tensor, yd: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Flat gradients ``[b, w]`` of the mean cross-entropy from the logits'
+    weights: ``w`` (dim, C) and ``b`` (C,) shared by every device, or
+    ``(M, dim, C)`` and ``(M, C)``, one per device."""
+    logits = torch.matmul(xd, w) + (b if b.dim() == 1 else b[:, None, :])
+    resid = torch.softmax(logits, dim=-1)
+    resid = resid - torch.nn.functional.one_hot(
+        yd, logits.shape[-1]).to(resid.dtype)
+    resid = resid / xd.shape[1]
+    return ravel({"w": torch.matmul(xd.transpose(1, 2), resid),
+                  "b": resid.sum(dim=1)}, batch_dims=1)
+
+
+def flat_grad_fn(params):
+    """``(w, xd, yd) -> (..., M, d)``: the flat gradient of each device at
+    its own iterate, the per-epoch hook
+    :func:`repro_torch.local.work.local_device_grads` drives.  ``w`` is
+    ``(M, d)`` in ``ravel`` order, or ``(G, M, d)`` for G points (then one
+    product per point, as :func:`device_grads`); ``xd`` is ``(M, B, dim)``,
+    or ``(G, M, B, dim)`` with each point's own devices.  ``params`` only
+    gives the leaves' shapes."""
+    n_b = params["b"].shape[-1]
+
+    def one(w, xd, yd):
+        m = w.shape[0]
+        return _softmax_grads(xd, yd, w[:, n_b:].reshape(
+            m, xd.shape[-1], n_b), w[:, :n_b])
+
+    def gf(w, xd, yd):
+        if w.dim() == 2:
+            return one(w, xd, yd)
+        if xd.dim() == 4:
+            return per_point(one, w, xd, yd, rank=2)
+        return per_point(lambda v: one(v, xd, yd), w, rank=2)
+
+    return gf
+
+
+def flat_local_delta(params, xd: torch.Tensor, yd: torch.Tensor,
+                     local_steps: int, local_lr: float) -> torch.Tensor:
+    """J local SGD steps on every device; transmit ``(theta - theta_m^J) /
+    (J * local_lr)`` as ``(M, d)`` rows.  Each step is one fused
+    multiply-add, and the division by the constant ``J * local_lr`` the
+    product with its float32 reciprocal, as the reference's ``jit``
+    compiles them; the first step's gradient is the shared-weight
+    product."""
+    lr = float(np.float32(local_lr))
+    gf = flat_grad_fn(params)
+    w0 = ravel(params)
+    w = w0.expand(xd.shape[0], w0.shape[0])
+    for j in range(local_steps):
+        g = device_grads(params, xd, yd, None)[0] if j == 0 else gf(w, xd, yd)
+        w = fma_f32(g, -lr, w)
+    recip = float(np.float32(1.0) / np.float32(local_lr * local_steps))
+    return (w0 - w) * recip
 
 
 def device_grads(params, xd: torch.Tensor, yd: torch.Tensor,
-                 momenta: torch.Tensor, *, momentum_correction: float = 0.0):
+                 momenta: torch.Tensor, *, local_steps: int = 1,
+                 local_lr: float = 0.1, momentum_correction: float = 0.0):
     """(M, d) per-device flat gradients of the mean cross-entropy, and the
     updated momenta.
 
@@ -100,25 +162,34 @@ def device_grads(params, xd: torch.Tensor, yd: torch.Tensor,
     softmax residual ``r = (softmax(x w + b) - onehot(y)) / B``, it is
     ``x^T r`` for w and ``sum_b r`` for b, one batched product for all
     devices.  Flat layout as ``ravel_pytree``: ``[b, w]``.
+    ``local_steps > 1`` is the legacy FedAvg device
+    (:func:`flat_local_delta`).
 
     Params of G points give ``(G, M, d)`` gradients, each point's as its
-    own call gives them; ``momenta`` then is ``(G, M, d)`` too.
+    own call gives them; ``momenta`` then is ``(G, M, d)`` too, and ``xd``,
+    ``yd`` may carry the points' own devices, ``(G, M, B, dim)``.
     """
     if params["w"].dim() == 3:
-        def one(b, w, mom):
-            return device_grads({"b": b, "w": w}, xd, yd, mom,
-                                momentum_correction=momentum_correction)
+        kw = dict(local_steps=local_steps, local_lr=local_lr,
+                  momentum_correction=momentum_correction)
+        if xd.dim() == 4:
+            # each point's own devices (a population grid's cohorts)
+            def one(b, w, x, y, mom=None):
+                return device_grads({"b": b, "w": w}, x, y, mom, **kw)
+            data = (xd, yd)
+        else:
+            def one(b, w, mom=None):
+                return device_grads({"b": b, "w": w}, xd, yd, mom, **kw)
+            data = ()
         if momenta is None:
-            return per_point(lambda b, w: one(b, w, None)[0], params["b"],
-                             params["w"], rank=1), None
-        return per_point(one, params["b"], params["w"], momenta, rank=1)
-    logits = torch.matmul(xd, params["w"]) + params["b"]        # (M, B, C)
-    resid = torch.softmax(logits, dim=-1)
-    resid = resid - torch.nn.functional.one_hot(
-        yd, logits.shape[-1]).to(resid.dtype)
-    resid = resid / xd.shape[1]
-    grads = ravel({"w": torch.matmul(xd.transpose(1, 2), resid),
-                   "b": resid.sum(dim=1)}, batch_dims=1)
+            return per_point(lambda *a: one(*a)[0], params["b"],
+                             params["w"], *data, rank=1), None
+        return per_point(lambda *a: one(*a[:-1], mom=a[-1]), params["b"],
+                         params["w"], *data, momenta, rank=1)
+    if local_steps > 1:
+        grads = flat_local_delta(params, xd, yd, local_steps, local_lr)
+    else:
+        grads = _softmax_grads(xd, yd, params["w"], params["b"])
     if momentum_correction > 0:
         momenta = momentum_correction * momenta + grads
         grads = momenta
@@ -128,12 +199,16 @@ def device_grads(params, xd: torch.Tensor, yd: torch.Tensor,
 def train_step(scheme: Scheme, opt: Optimizer, params, opt_state,
                deltas: torch.Tensor, momenta: torch.Tensor, xd: torch.Tensor,
                yd: torch.Tensor, t: int, key: torch.Tensor, *,
-               momentum_correction: float = 0.0):
+               momentum_correction: float = 0.0, local_steps: int = 1,
+               local_lr: float = 0.1, grads=None):
     """One federated round: device gradients, the scheme's round over the
     simulated MAC, Adam at the PS.  Returns
-    ``(params, opt_state, deltas, momenta, metrics)``."""
-    grads, momenta = device_grads(params, xd, yd, momenta,
-                                  momentum_correction=momentum_correction)
+    ``(params, opt_state, deltas, momenta, metrics)``.  ``grads`` given
+    (a local algorithm's deltas) replace the device gradients."""
+    if grads is None:
+        grads, momenta = device_grads(
+            params, xd, yd, momenta, local_steps=local_steps,
+            local_lr=local_lr, momentum_correction=momentum_correction)
     ghat, deltas, met = round_simulated(scheme, grads, deltas, t, key)
     params, opt_state = opt.apply(params, unravel(ghat, params), opt_state)
     return params, opt_state, deltas, momenta, met
@@ -150,13 +225,15 @@ def run_federated(x_dev: np.ndarray, y_dev: np.ndarray,
     """Train the paper's model with the given aggregation scheme.
 
     ``device=None`` runs on the card and raises ``RuntimeError`` without
-    one.  ``local_steps > 1`` (FedAvg-style local SGD) is not ported yet;
-    a subband scheduler raises ``ValueError``, as in the reference.
+    one.  Beyond the paper, as in the reference: ``local_steps > 1`` is
+    FedAvg-style local SGD (each device transmits its model delta),
+    ``momentum_correction > 0`` compresses the momentum, and ``ota.local``
+    / ``ota.local_epochs`` select the registered local-compute algorithm
+    (:mod:`repro_torch.local`); ``local_steps > 1`` with a non-identity
+    algorithm raises ``ValueError``, as does a subband scheduler.
     ``seed`` only seeds the zero initialisation, as in the reference.
     """
     dev = resolve_device(device)
-    if local_steps > 1:
-        raise NotImplementedError("local_steps > 1 is not ported yet")
     m, _, dim = x_dev.shape
     n_classes = int(y_dev.max()) + 1
     params = init_linear(dim, n_classes, dev)
@@ -167,10 +244,18 @@ def run_federated(x_dev: np.ndarray, y_dev: np.ndarray,
             "subband scheduling needs carried scheduler state; the looped "
             "driver has none -- use run_compiled for "
             f"scheduler={ota.scheduler!r}")
+    lw = get_local(ota, local_lr, device=dev)
+    if not lw.identity and local_steps > 1:
+        raise ValueError(
+            "local_steps > 1 (the legacy FedAvg path) conflicts with the "
+            f"configured local algorithm {ota.local!r} at "
+            f"local_epochs={ota.local_epochs}; use ota.local_epochs")
+    gf = flat_grad_fn(params)
     opt = Optimizer(name=optimizer, lr=lr)
     opt_state = opt.init(params)
     deltas = torch.zeros((m, d), dtype=torch.float32, device=dev)
     momenta = torch.zeros((m, d), dtype=torch.float32, device=dev)
+    duals = lw.init_dual(m, d)
     xd = torch.as_tensor(x_dev, dtype=torch.float32, device=dev)
     yd = torch.as_tensor(y_dev, device=dev).long()
     xt = torch.as_tensor(x_test, dtype=torch.float32, device=dev)
@@ -178,13 +263,20 @@ def run_federated(x_dev: np.ndarray, y_dev: np.ndarray,
 
     run = FederatedRun()
     for t in range(steps):
+        grads = None
+        if not lw.identity:
+            grads, momenta, duals = local_device_grads(
+                lw, gf, params, xd, yd, momenta, duals,
+                momentum_correction=momentum_correction)
         params, opt_state, deltas, momenta, met = train_step(
             scheme, opt, params, opt_state, deltas, momenta, xd, yd, t,
             rng.PRNGKey(1000 + t, device=dev),
-            momentum_correction=momentum_correction)
+            momentum_correction=momentum_correction,
+            local_steps=local_steps, local_lr=local_lr, grads=grads)
         if t % eval_every == 0 or t == steps - 1:
             run.accs.append(float(accuracy(params, xt, yt)))
             run.losses.append(float(ce_loss(params, xt, yt)))
             run.metrics.append({k: float(v) for k, v in met.items()})
     run.params, run.opt_state, run.deltas = params, opt_state, deltas
+    run.duals = duals
     return run

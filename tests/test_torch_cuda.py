@@ -989,3 +989,237 @@ def test_guarded_robust_grid_equals_run_compiled_on_card(dev):
             base, robust=True, byzantine_frac=rec["byzantine_frac"],
             clip_power=rec["clip_power"]), steps=6, eval_every=2)
         assert rec["accs"] == one.accs and rec["losses"] == one.losses
+
+
+# ---------------------------------------------------------------------------
+# the local-compute axis and the population engine on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [20, 64])
+def test_kernels_at_cohort_widths_bitwise(dev, m):
+    """Fig. 12's 20 devices (a partial device tile) and Fig. 10's K = 64
+    (eight full tiles) at the main path's shapes: ota_project (Rademacher,
+    2 x 4096 -> 1024) and ef_sparsify (m x 7850) bitwise with their plain
+    versions."""
+    gen = _gen(dev, 100 + m)
+    x = torch.randn(m, 2, 4096, generator=gen, device=dev)
+    seed = torch.tensor(4242, dtype=torch.int64, device=dev)
+    y = ota_project.ota_project(x, seed, 1024, True)
+    assert torch.equal(y, ref.ota_project_ref(x, seed, 1024, True))
+    g = torch.randn(m, 7850, generator=gen, device=dev)
+    d = torch.randn(m, 7850, generator=gen, device=dev)
+    tau = torch.rand(m, generator=gen, device=dev)
+    sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
+    sr, dr = ref.ef_sparsify_ref(g, d, tau)
+    assert torch.equal(sp, sr) and torch.equal(nd, dr)
+
+
+def _local_data(m=20, b=50, dim=48):
+    from repro_torch.data import federated_split, make_classification
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=2000, n_test=300, dim=dim, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=m, b=b, kind="dirichlet",
+                             beta=0.25, seed=0)
+    return xd, yd, xte, yte
+
+
+def test_local_e1_pin_on_card(dev):
+    """sgd compiled for 2 epochs and run at E = 1 is device_grads bitwise
+    on the card, and each algorithm's cut epoch leaves its carry
+    untouched."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.local import get_local, local_device_grads
+    from repro_torch.train.paper_repro import device_grads, flat_grad_fn
+    xd, yd, _, _ = _local_data()
+    gen = _gen(dev, 5)
+    params = {"w": 0.1 * torch.randn(48, 10, generator=gen, device=dev),
+              "b": 0.1 * torch.randn(10, generator=gen, device=dev)}
+    x, y = torch.as_tensor(xd, device=dev), torch.as_tensor(yd,
+                                                            device=dev).long()
+    gf = flat_grad_fn(params)
+    for algo in ("sgd", "fedavg", "fedprox", "feddyn"):
+        cfg = OTAConfig(local=algo, local_epochs=2, prox_mu=0.5,
+                        dyn_alpha=0.1)
+        lw2 = get_local(cfg, 0.6, device=dev).with_overrides(
+            local_epochs=1.0)
+        lw1 = get_local(dataclasses.replace(cfg, local_epochs=1), 0.6,
+                        device=dev)
+        duals = torch.zeros(20, 490, device=dev) if lw2.has_dual else None
+        a = local_device_grads(lw2, gf, params, x, y, None, duals)
+        b = local_device_grads(lw1, gf, params, x, y, None, duals)
+        assert torch.equal(a[0], b[0]), algo
+        if algo == "sgd":
+            assert torch.equal(a[0], device_grads(params, x, y, None)[0])
+
+
+def test_local_points_each_their_own_on_card(dev):
+    """G = 3 points of FedDyn (E and alpha per point): each point's deltas
+    and duals are its own call's, bitwise, on the card."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.local import get_local, local_device_grads
+    from repro_torch.train.paper_repro import flat_grad_fn
+    xd, yd, _, _ = _local_data()
+    x, y = torch.as_tensor(xd, device=dev), torch.as_tensor(yd,
+                                                            device=dev).long()
+    gen = _gen(dev, 6)
+    ps = {"w": 0.1 * torch.randn(3, 48, 10, generator=gen, device=dev),
+          "b": 0.1 * torch.randn(3, 10, generator=gen, device=dev)}
+    duals = 0.01 * torch.randn(3, 20, 490, generator=gen, device=dev)
+    lw = get_local(OTAConfig(local="feddyn", local_epochs=4), 0.6,
+                   device=dev)
+    e, al = [1.0, 4.0, 2.0], [0.1, 0.0, 0.3]
+    gf = flat_grad_fn({k: v[0] for k, v in ps.items()})
+    got, _, gd = local_device_grads(lw.with_overrides(
+        local_epochs=e, dyn_alpha=al), gf, ps, x, y, None, duals)
+    for g in range(3):
+        want, _, wd = local_device_grads(
+            lw.with_overrides(local_epochs=e[g], dyn_alpha=al[g]), gf,
+            {k: v[g].clone() for k, v in ps.items()}, x, y, None,
+            duals[g].clone())
+        assert torch.equal(got[g], want) and torch.equal(gd[g], wd)
+
+
+@pytest.mark.parametrize("algo", ["fedavg", "fedprox", "feddyn"])
+def test_local_grid_equals_run_compiled_on_card(dev, algo):
+    """A local_epochs grid on the kernel path equals each point's own
+    run_compiled on the card, bitwise."""
+    from repro_torch.configs.base import OTAConfig
+    from repro_torch.experiments import engine, run_sweep
+    xd, yd, xte, yte = _local_data()
+    cfg = OTAConfig(scheme="a_dsgd", s_frac=0.5, k_frac=0.25,
+                    p_avg=50000.0, total_steps=6, projection="blocked",
+                    block_size=64, rademacher=True, use_kernel=True,
+                    amp_iters=6, mean_removal_steps=2, local=algo,
+                    prox_mu=0.5, dyn_alpha=0.1)
+    res = run_sweep((xd, yd), (xte, yte), cfg, {"local_epochs": [1, 2, 4]},
+                    steps=6, eval_every=2, local_lr=0.6)
+    for rec in res.records:
+        one = engine.run_compiled(xd, yd, xte, yte, dataclasses.replace(
+            cfg, local_epochs=rec["local_epochs"]), steps=6, eval_every=2,
+            local_lr=0.6)
+        assert rec["accs"] == one.accs and rec["losses"] == one.losses
+
+
+def test_population_pieces_on_card_equal_cpu(dev):
+    """The sampler (Gumbel scores, the stable sort with ties at -inf),
+    availability, latencies, the banks' gather and scatter with
+    collisions, and the edge-site MAC: the CPU's bits on the card."""
+    from repro_torch import rng
+    from repro_torch.population import churn, hierarchy, state, stragglers
+    from repro_torch.population.sampler import sample_cohort
+    avail = torch.from_numpy(np.random.RandomState(0).rand(3, 5000) < 0.002)
+    keys = rng.split(rng.PRNGKey(8), 3)
+    want = sample_cohort(keys, avail, 16)
+    got = sample_cohort(keys.to(dev), avail.to(dev), 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    arr, dep = churn.init_arrival_departure(rng.PRNGKey(1), 5000, 30, 0.4,
+                                            9.0)
+    av = churn.availability(arr, dep, 7, keys, torch.tensor([0.5, 0.9, 1.0]))
+    av_dev = churn.availability(arr.to(dev), dep.to(dev), 7, keys.to(dev),
+                                torch.tensor([0.5, 0.9, 1.0], device=dev))
+    assert torch.equal(av_dev.cpu(), av)
+    speed = stragglers.init_speed(rng.PRNGKey(2), 64, 0.5)
+    assert torch.equal(stragglers.init_speed(rng.PRNGKey(2, dev), 64,
+                                             0.5).cpu(), speed)
+    assert torch.equal(stragglers.latencies(keys.to(dev),
+                                            speed.to(dev)).cpu(),
+                       stragglers.latencies(keys, speed))
+    banks = state.init_banks(24, 5, 7, device="cpu", points=3)
+    bdev = state.init_banks(24, 5, 7, device=dev, points=3)
+    rs = np.random.RandomState(3)
+    for _ in range(4):
+        cohort = torch.from_numpy(np.sort(np.stack([
+            rs.choice(90, 12, replace=False) for _ in range(3)]), axis=-1))
+        vals = torch.from_numpy(rs.randn(3, 12, 7).astype(np.float32))
+        banks = state.scatter_cohort(banks, cohort, vals)
+        bdev = state.scatter_cohort(bdev, cohort.to(dev), vals.to(dev))
+        assert torch.equal(bdev.deltas.cpu(), banks.deltas)
+        assert torch.equal(bdev.owner.cpu(), banks.owner)
+        assert torch.equal(state.gather_cohort(bdev, cohort.to(dev)).cpu(),
+                           state.gather_cohort(banks, cohort))
+    frames = torch.from_numpy(rs.randn(3, 64, 2050).astype(np.float32))
+    sites = torch.from_numpy(rs.randint(0, 4, (3, 64)))
+    sc = torch.tensor([1.0, 2.0, 0.5])
+    for trim in (0.0, 0.25):
+        want = hierarchy.site_mac_sum(frames, sites, 4, keys, 1.0, sc, sc,
+                                      site_trim_frac=trim)
+        got = hierarchy.site_mac_sum(frames.to(dev), sites.to(dev), 4,
+                                     keys.to(dev), 1.0, sc.to(dev),
+                                     sc.to(dev), site_trim_frac=trim)
+        assert torch.equal(got.cpu(), want)
+
+
+def _pool(m_total, b):
+    from repro_torch.data import make_classification
+    from repro_torch.data.partition import population_partition
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=4000, n_test=300, dim=48, noise=2.0, seed=0)
+    return xtr, ytr, xte, yte, population_partition(ytr, m=m_total, b=b,
+                                                    kind="iid", seed=0)
+
+
+def _pop_cfg(**kw):
+    from repro_torch.configs.base import OTAConfig
+    return OTAConfig(scheme="a_dsgd", s_frac=0.5, k_frac=0.25, p_avg=500.0,
+                     total_steps=6, projection="blocked", block_size=64,
+                     rademacher=True, use_kernel=True, amp_iters=6,
+                     mean_removal_steps=2, **kw)
+
+
+def test_population_full_cohort_is_run_compiled_on_card(dev):
+    """K == M: run_population is run_compiled bitwise on the card, and the
+    kernels launch once a round."""
+    from repro_torch import population as tpop
+    from repro_torch.data import federated_split, make_classification
+    from repro_torch.experiments import engine
+    (xtr, ytr), (xte, yte) = make_classification(
+        n_train=800, n_test=300, dim=48, noise=2.0, seed=3)
+    xd, yd = federated_split(xtr, ytr, m=25, b=32, iid=True, seed=0)
+    for kw in ({}, dict(local="feddyn", local_epochs=2, dyn_alpha=0.2)):
+        cfg = _pop_cfg(**kw)
+        ops.reset_launches()
+        pop = tpop.run_population(
+            tpop.PopulationData.from_dense(xd, yd), xte, yte, cfg,
+            tpop.PopulationConfig(m_total=25, k_cohort=25), steps=6,
+            eval_every=1)
+        assert ops.launch_counts()["amp_fused"] == 6
+        one = engine.run_compiled(xd, yd, xte, yte, cfg, steps=6,
+                                  eval_every=1)
+        assert pop.all_losses.tolist() == one.all_losses.tolist()
+        for k in one.params:
+            assert torch.equal(pop.params[k], one.params[k])
+
+
+def test_population_grid_equals_runs_on_card(dev):
+    """An avail_rate x k_active grid over a sampled population (churn,
+    stragglers and two sites on) equals each point's own run_population
+    on the card, bitwise."""
+    from repro_torch import population as tpop
+    from repro_torch.experiments import run_population_sweep
+    xtr, ytr, xte, yte, part = _pool(3000, 16)
+    pdata = tpop.PopulationData.from_pool(xtr, ytr, part)
+    cfg = _pop_cfg()
+    pop = tpop.PopulationConfig(m_total=3000, k_cohort=64, capacity=512,
+                                speed_sigma=0.5, straggler_deadline=3.0,
+                                n_sites=2)
+    res = run_population_sweep(pdata, (xte, yte), cfg, pop,
+                               {"avail_rate": [0.5, 1.0],
+                                "k_active": [32, 64]}, steps=6,
+                               eval_every=2)
+    for rec in res.records:
+        one = tpop.run_population(pdata, xte, yte, cfg, dataclasses.replace(
+            pop, avail_rate=rec["avail_rate"]), steps=6, eval_every=2) \
+            if rec["k_active"] == 64 else None
+        if one is not None:
+            assert rec["accs"] == one.accs and rec["losses"] == one.losses
+    # a k_active point is its own runner's run with the override
+    from repro_torch.experiments import engine
+    exp = tpop.PopulationExperiment(cfg=cfg, pop=pop, steps=6, eval_every=2)
+    cp = tpop.CompiledPopulation(pdata, xte, yte, exp)
+    own = cp.run({"k_active": 32.0, "avail_rate": 0.5},
+                 engine.round_keys(6, 0, dev))
+    rec = res.record(avail_rate=0.5, k_active=32)
+    idx = engine.eval_indices(6, 2)
+    assert rec["losses"] == own["loss"].cpu().numpy()[idx].tolist()

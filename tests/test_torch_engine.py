@@ -231,6 +231,10 @@ def test_run_compiled_defaults_to_the_card(data):
 
 @pytest.mark.parametrize("what", ["guard", "local", "overrides", "mac"])
 def test_unported_parts_raise(data, what):
+    """Every part the reference's engine has now runs here: the guard, the
+    local-compute axis, its knobs as overrides and the ``mac`` hook; an
+    override the engine does not know still raises.  (The name dates from
+    when these parts raised.)"""
     cfg = OTAConfig(**CONFIGS["ideal"])
     if what == "guard":
         # the guardrails are ported (tests/test_torch_robust_engine.py):
@@ -239,24 +243,32 @@ def test_unported_parts_raise(data, what):
                                   **CPU)
         assert run.metrics[0]["guard_skipped"] == 0.0
     elif what == "local":
-        with pytest.raises(NotImplementedError):
-            engine.run_compiled(*data, dataclasses.replace(cfg,
-                                                           local="fedavg"),
-                                steps=1, **CPU)
+        # the local-compute axis is ported (tests/test_torch_local*.py)
+        run = engine.run_compiled(*data, dataclasses.replace(
+            cfg, local="fedavg"), steps=1, **CPU)
+        assert np.isfinite(run.all_losses).all()
     else:
         exp = engine.Experiment(cfg=cfg, steps=1)
         ce = engine.CompiledExperiment(*data, exp, device="cpu")
         keys = engine.round_keys(1, 0, "cpu")
         if what == "overrides":
-            # the schedules, the channel and the robustness scalars are
-            # ported (tests/test_torch_sweep.py, tests/test_torch_channel.py,
-            # tests/test_torch_robust_engine.py); the local-compute knobs
-            # need the local-compute axis
-            with pytest.raises(NotImplementedError, match="local_epochs"):
-                ce.run({"local_epochs": torch.ones(())}, keys)
+            # the local-compute knobs land on the run's LocalWork; an
+            # unknown name raises
+            out = ce.run({"local_epochs": torch.ones(())}, keys)
+            assert torch.isfinite(out["loss"]).all()
+            with pytest.raises(AttributeError, match="no_such_knob"):
+                ce.run({"no_such_knob": torch.ones(())}, keys)
         else:
-            with pytest.raises(NotImplementedError):
-                engine.round_masked(ce.scheme, torch.zeros(M, ce.d),
-                                    torch.zeros(M, ce.d), 0, keys[0],
-                                    torch.ones(M), ce.ctx,
-                                    mac=lambda *a: None)
+            # the mac hook (the population engine's edge sites) replaces
+            # the flat MAC sum of an analog scheme
+            sch = get_scheme(OTAConfig(**CONFIGS["a_dsgd_dense"]), ce.d, M,
+                             device="cpu")
+            seen = []
+
+            def mac(frames, mac_key, sigma2):
+                seen.append(frames.shape)
+                return frames.sum(dim=-2)
+            engine.round_masked(sch, torch.zeros(M, ce.d),
+                                torch.zeros(M, ce.d), 0, keys[0],
+                                torch.ones(M), ce.ctx, mac=mac)
+            assert seen == [(M, sch.channel_dim())]

@@ -639,11 +639,21 @@ def test_robust_zero_rates_is_bitwise_the_plain_round(scheme):
 
 
 def test_mac_hook_still_raises():
+    """The ``mac`` hook is ported: it replaces the flat MAC sum after the
+    frame faults, so the poisoned frames reach it.  (The name dates from
+    when the hook raised.)"""
     from repro_torch.core import schemes as tsc
     from repro_torch.experiments import engine as teng
     st = tsc.get_scheme(_port_cfg(_round_cfg("a_dsgd", "nan", "mean",
                                              False)), D, M_DEV, device="cpu")
-    with pytest.raises(NotImplementedError, match="mac"):
-        teng.round_masked(st, torch.zeros(M_DEV, D), torch.zeros(M_DEV, D),
-                          0, rng.PRNGKey(0), torch.ones(M_DEV),
-                          tsc.MACContext(m=M_DEV), mac=lambda *a: None)
+    seen = []
+
+    def mac(frames, mac_key, sigma2):
+        seen.append(torch.isnan(frames).any(dim=-1))
+        return frames.sum(dim=-2)
+    teng.round_masked(st, torch.ones(M_DEV, D), torch.zeros(M_DEV, D), 0,
+                      rng.PRNGKey(0), torch.ones(M_DEV),
+                      tsc.MACContext(m=M_DEV), mac=mac)
+    fault = st.fault_draw(rng.fold_in(rng.PRNGKey(0), tfl.SALT_FAULT), 0,
+                          M_DEV)
+    assert torch.equal(seen[0], fault.poison)

@@ -45,6 +45,16 @@ def data():
     return (xd, yd), (xte, yte)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test on one intra-op thread (thousands of small ops, which a
+    parallel run's busy cores slow with a pool of threads to wake)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _adsgd(**kw):
     base = dict(scheme="a_dsgd", s_frac=0.5, k_frac=0.25, p_avg=500.0,
                 total_steps=STEPS, projection="dense", amp_iters=6,
@@ -197,17 +207,23 @@ def test_sweep_unknown_axis_raises(data):
 
 @pytest.mark.parametrize("axis", ROBUST_VMAP_AXES + LOCAL_VMAP_AXES)
 def test_unported_vmapped_axes_raise(data, axis):
-    """The reference's local-compute axes keep their names here and raise,
-    naming the axis.  The robustness axes are ported (the channel scalars
-    too: tests/test_torch_channel.py): a one-point sweep over one turns on
-    the fault path and equals its own robust run_compiled
-    (tests/test_torch_robust_engine.py holds the grids)."""
+    """The robustness and local-compute axes are ported (the channel
+    scalars too: tests/test_torch_channel.py): a one-point sweep over one
+    equals its own run_compiled (a robust axis turns on the fault path;
+    tests/test_torch_robust_engine.py and tests/test_torch_local_engine.py
+    hold the grids).  (The name dates from when these axes raised.)"""
+    (xd, yd), (xt, yt) = data
     if axis in LOCAL_VMAP_AXES:
-        with pytest.raises(NotImplementedError, match=axis):
-            run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
+        value = 2 if axis == "local_epochs" else 0.1
+        base = _adsgd(local="feddyn")
+        res = run_sweep(*data, base, {axis: [value]}, steps=2, **CPU)
+        own = engine.run_compiled(xd, yd, xt, yt,
+                                  dataclasses.replace(base, **{axis: value}),
+                                  steps=2, eval_every=10, **CPU)
+        rec, = res.records
+        assert rec["accs"] == own.accs and rec["losses"] == own.losses
         return
     res = run_sweep(*data, _adsgd(), {axis: [0.1]}, steps=2, **CPU)
-    (xd, yd), (xt, yt) = data
     own = engine.run_compiled(xd, yd, xt, yt,
                               _adsgd(robust=True, **{axis: 0.1}),
                               steps=2, eval_every=10, **CPU)
@@ -217,8 +233,23 @@ def test_unported_vmapped_axes_raise(data, axis):
 
 
 def test_population_sweep_raises(data):
-    with pytest.raises(NotImplementedError, match="population"):
-        run_population_sweep(None, data[1], _adsgd(), None, {}, steps=2)
+    """run_population_sweep is ported (tests/test_torch_population_engine.py
+    holds its grids); the dense engine's m_active axis and a k_active past
+    the cohort still raise, as in the reference.  (The name dates from when
+    the whole sweep raised.)"""
+    from repro_torch.population import PopulationConfig, PopulationData
+    (xd, yd), _ = data
+    pdata = PopulationData.from_dense(xd, yd, device="cpu")
+    pop = PopulationConfig(m_total=M, k_cohort=M)
+    with pytest.raises(KeyError, match="k_active"):
+        run_population_sweep(pdata, data[1], _adsgd(), pop,
+                             {"m_active": [2]}, steps=2, **CPU)
+    with pytest.raises(ValueError, match="k_cohort"):
+        run_population_sweep(pdata, data[1], _adsgd(), pop,
+                             {"k_active": [M + 1]}, steps=2, **CPU)
+    res = run_population_sweep(pdata, data[1], _adsgd(), pop,
+                               {"k_active": [M]}, steps=2, **CPU)
+    assert len(res.records) == 1
 
 
 # ---------------------------------------------------------------------------
