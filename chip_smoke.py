@@ -32,7 +32,11 @@ Phases, one JSON line each:
             clean block and point bitwise the clean decode; and
             ``cohort_widths``: ota_project at 20 and 64 devices (x 2 x
             4096 -> 1024, Rademacher) and ef_sparsify at 64 x 7850, the
-            local and population paths' widths, bitwise.  Each record times
+            local and population paths' widths, bitwise; and
+            ``sharded_shapes``: one rank's ota_project (1 x 1 x 4096 ->
+            1024, a shard-folded seed, bitwise) and one-block amp_fused,
+            and amp_fused at every id_offset 1-24 (a noisy and a zero
+            block, bitwise).  Each record times
             the kernel four ways:
             ``kernel_ms`` per call (median of single calls between CUDA
             events, Python wrapper included); ``graph_device_ms``, the
@@ -132,13 +136,30 @@ Phases, one JSON line each:
             run_population_sweep over avail_rate in {0.5, 0.9, 1.0}, each
             record its own run_population; and a FedDyn population run
             stopped at round 10 and resumed, bitwise the uninterrupted run;
-12. kernels the per-kernel record: route, source, the TPU kernel it
+12. sharded the slice's round through the sharded slice drivers on a mesh
+            of rank threads (``repro_torch.sharding``), at the slice's
+            config and full width, with device_grads and Adam at the PS:
+            (a) ``sharded_round`` on 25 device rows x 2 shards (50 rank
+            threads, d_pad 8192, one 4096 block per shard), 20 rounds;
+            (b) the same with ``shard_decode`` (rows 1-24 decode padded
+            blocks at id_offset 1-24); (c) ``round_sharded`` on 25 ranks;
+            (d) ``sharded_round`` with five edge sites of five and
+            ``site_mac``; (e) a bfloat16 frame body; (b)-(e) 5 rounds
+            each.  One launch per rank and round: 50 of ota_project and
+            amp_fused in (a), (b), (d), (e), 25 of each main-path kernel in
+            (c).  (a), (b), (c) bitwise their plain runs on the card (the
+            first 5 rounds), (b) bitwise (a), two runs of (a) bitwise; and
+            (f) a 2 x 2 gloo process group of four processes on the card,
+            3 rounds, bitwise the thread mesh at 2 x 2.  Per run: test
+            accuracy, ms per round (CUDA events, median) and, in turns, one
+            sharded round beside the simulated slice's round;
+13. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
-population) runs with every launch count set to 0 just before it and read
-just after.
+population, each run of sharded) runs with every launch count set to 0
+just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -207,7 +228,8 @@ PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "channel": ("ef_sparsify", "ota_project", "amp_fused"),
                 "robust": ("ef_sparsify", "ota_project", "amp_fused"),
                 "local": ("ef_sparsify", "ota_project", "amp_fused"),
-                "population": ("ef_sparsify", "ota_project", "amp_fused")}
+                "population": ("ef_sparsify", "ota_project", "amp_fused"),
+                "sharded": ("ef_sparsify", "ota_project", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
 #: point counts at which the point-axis amp_fused is also timed
@@ -241,6 +263,20 @@ LOCAL_LR, PROX_MU, DYN_ALPHA, LOCAL_P_AVG = 0.6, 0.5, 0.1, 50_000.0
 #: (benchmarks/fig10_scaling.py): M = 100 000, K = 64, B = 64, capacity 8192
 POP_M, POP_K, POP_B, POP_CAPACITY = 100_000, 64, 64, 8192
 POP_AVAIL_GRID = (0.5, 0.9, 1.0)
+#: the sharded phase: the slice's round through both slice drivers on a
+#: mesh of rank threads at full width: 25 device rows x 2 shards of the
+#: padded d = 8192 (one 4096 block per shard) for sharded_round, 25 devices
+#: of d = 7850 for round_sharded
+SHARDED_M, SHARDED_SHARDS, SHARDED_D_PAD = 25, 2, 8192
+#: run (d)'s five edge sites of five devices
+SHARDED_GROUPS = tuple(tuple(range(5 * i, 5 * i + 5)) for i in range(5))
+#: rounds of runs (b)-(e), of the plain runs and of the repeat of (a),
+#: each held against the first rounds of its counterpart (run (a) takes
+#: STEPS): a thread per rank multiplies the round's host-bound launches
+#: by the rank count
+SHARDED_SHORT = 5
+#: rounds of the 2 x 2 process-group mesh held against the thread mesh
+PG_ROUNDS = 3
 
 
 class CheckFailed(RuntimeError):
@@ -473,11 +509,10 @@ def check_ef_sparsify(m: int, n: int, k: int, device, gen):
 
 
 def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
-                      device, gen, bitwise: bool = False):
+                      device, gen, bitwise: bool = False, seed: int = 12345):
     import torch
     from repro_torch.kernels import ota_project, ref
     x = torch.randn(m, n_blocks, c, generator=gen, device=device)
-    seed = 12345
     y = ota_project.ota_project(x, seed, s, rademacher)
     y_ref = ref.ota_project_ref(x, seed, s, rademacher)
     torch.cuda.synchronize()
@@ -648,6 +683,35 @@ def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
                   lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
                                            **kw)),
         bound=bound(4 * (points * n_blocks * (s + c)), n_ops))
+
+
+def check_amp_fused_offsets(c: int, s: int, iters: int, offsets, device,
+                            gen):
+    """amp_fused on one block with its global block id, as ``shard_decode``
+    hands each device row its block: a noisy block made with that id and
+    the all-zero block of a padded row, bitwise the plain version at every
+    offset."""
+    import torch
+    from repro_torch.core.amp import amp_blocked_core
+    from repro_torch.kernels import amp_fused, ref
+    seed = 777
+    for off in offsets:
+        x = block_sparse(1, c, s // 8, gen, device)
+        A = ref.block_matrix_ref(seed, torch.tensor([off], device=device), s,
+                                 c)
+        y = ref.contract("isc,ic->is", A, x) + 0.01 * torch.randn(
+            1, s, generator=gen, device=device)
+        for yb in (y, torch.zeros_like(y)):
+            got = amp_fused.amp_decode_fused(yb, seed, c, iters=iters,
+                                             id_offset=off)
+            want = amp_blocked_core(yb, seed, c, iters, id_offset=off)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"amp_fused one block at "
+                  f"id_offset {off}: not bitwise its plain version: "
+                  + mismatch(got, want, 0, 0))
+    return dict(kernel="amp_fused", shape=[1, s, c], iters=iters,
+                id_offsets=[min(offsets), max(offsets)],
+                blocks=["noisy", "zero"], tol="bitwise")
 
 
 def same_nonfinite(out, want) -> bool:
@@ -1715,6 +1779,279 @@ def run_population_phase(data, cfg, device, steps: int = STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the sharded slice drivers on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+def sharded_loop(xd, yd, cfg, driver: str, mesh, ctx, device):
+    """A training loop through one sharded driver: per round the device
+    gradients of the mesh's device rows (``device_grads``), the driver once
+    per rank under ``shard_map``, and Adam at the PS on the replicated
+    estimate.  Returns ``step(t, key) -> ghat`` and its state."""
+    import torch
+    from repro_torch.convert import unravel
+    from repro_torch.core import distributed
+    from repro_torch.core.schemes import get_scheme, round_sharded
+    from repro_torch.optim.optim import Optimizer
+    from repro_torch.sharding import P, shard_map
+    from repro_torch.train.paper_repro import device_grads, init_linear
+    m, d = xd.shape[0], 7850
+    params = init_linear(xd.shape[-1], 10, device)
+    scheme = get_scheme(cfg, d, m, device=device)
+    opt = Optimizer(lr=1e-3)
+    width = ctx.d_pad if driver == "sharded_round" else d
+    st = dict(params=params, opt=opt.init(params),
+              deltas=torch.zeros((m, width), device=device))
+    if driver == "sharded_round":
+        rows, ghat_spec = P("dev", "shard"), P("shard")
+
+        def body(g, dl, t, key):
+            ghat, nd, _ = distributed.sharded_round(
+                scheme, g.reshape(-1), dl.reshape(-1), t, key, ctx)
+            return ghat, nd.reshape(1, -1)
+    else:
+        rows, ghat_spec = P("dev"), P()
+
+        def body(g, dl, t, key):
+            ghat, nd, _ = round_sharded(scheme, g.reshape(-1),
+                                        dl.reshape(-1), t, key, ctx)
+            return ghat, nd.reshape(1, -1)
+    run = shard_map(body, mesh, (rows, rows, None, None), (ghat_spec, rows))
+
+    def step(t, key):
+        grads, _ = device_grads(st["params"], xd, yd, None)
+        g = torch.nn.functional.pad(grads, (0, width - d))
+        ghat, st["deltas"] = run(g, st["deltas"], t, key)
+        ghat = ghat[:d]
+        st["params"], st["opt"] = opt.apply(
+            st["params"], unravel(ghat, st["params"]), st["opt"])
+        return ghat
+
+    return step, st
+
+
+def sharded_train(xd, yd, cfg, driver, mesh, ctx, device, steps):
+    """``steps`` rounds of :func:`sharded_loop`, each between a pair of
+    CUDA events: ``(ghats (steps, d), state, ms per round)``."""
+    import torch
+    from repro_torch.experiments import engine
+    step, st = sharded_loop(xd, yd, cfg, driver, mesh, ctx, device)
+    keys = engine.round_keys(steps, 0, device)
+    ghats, events = [], []
+    for t in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ghats.append(step(t, keys[t]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return (torch.stack(ghats), st,
+            [a.elapsed_time(b) for a, b in events])
+
+
+def pg_train(xd, yd, mesh, device, rounds: int):
+    """The process-group check's run: sharded_round with the kernels on a
+    2 x 2 mesh at the slice's width."""
+    from repro_torch.core.schemes import MACContext
+    ctx = MACContext(m=2, device_axes=("dev",), shard_axes=("shard",),
+                     d_pad=SHARDED_D_PAD, use_kernel=True)
+    ghats, st, _ = sharded_train(xd, yd, slice_config(STEPS), "sharded_round",
+                                 mesh, ctx, device, rounds)
+    return ghats, st
+
+
+def pg_worker(rank: int, store: str, data_path: str, out_path: str,
+              rounds: int) -> None:
+    """One rank of the 2 x 2 gloo process group (run in its own process by
+    :func:`run_process_group`)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import sharding
+    from repro_torch.device import resolve_device
+    device = resolve_device(None)
+    mesh = sharding.init_process_mesh(
+        (2, 2), ("dev", "shard"), rank=rank, world_size=4,
+        init_method="file://" + store, timeout=300)
+    try:
+        xd, yd = (t.to(device) for t in torch.load(data_path))
+        ghats, st = pg_train(xd, yd, mesh, device, rounds)
+        torch.save({"ghats": ghats.cpu(), "deltas": st["deltas"].cpu(),
+                    "w": st["params"]["w"].cpu()}, out_path)
+    finally:
+        sharding.close_process_mesh()
+
+
+def run_process_group(xd, yd, device, rounds: int = PG_ROUNDS) -> dict:
+    """(f): four processes on the one card, a 2 x 2 gloo mesh, against the
+    thread mesh at the same 2 x 2 in this process, bitwise."""
+    import tempfile
+    import torch
+    from repro_torch.sharding import Mesh
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data.pt"
+        torch.save((xd.cpu(), yd.cpu()), data)
+        outs = [Path(tmp) / f"rank{r}.pt" for r in range(4)]
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.pg_worker(int(sys.argv[2]), "
+                "*sys.argv[3:6], int(sys.argv[6]))")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(ROOT), str(r),
+             str(Path(tmp) / "store"), str(data), str(outs[r]), str(rounds)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(4)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              "sharded (f): a process-group rank failed:\n"
+              + "\n".join(log[-3000:] for log in logs))
+        got = [torch.load(o) for o in outs]
+    pg_s = time.perf_counter() - t0
+    ghats, st = pg_train(xd, yd, Mesh((2, 2), ("dev", "shard")), device,
+                         rounds)
+    want = {"ghats": ghats.cpu(), "deltas": st["deltas"].cpu(),
+            "w": st["params"]["w"].cpu()}
+    for r, rec in enumerate(got):
+        for k in want:
+            check(torch.equal(rec[k], want[k]), f"sharded (f): rank {r}'s "
+                  f"{k} after {rounds} rounds differs from the thread mesh's")
+    check(bool(torch.isfinite(want["ghats"]).all()),
+          "sharded (f): non-finite estimate")
+    return dict(mesh=[2, 2], transport="gloo, 4 processes on one card",
+                rounds=rounds, vs_thread_mesh="bitwise",
+                processes_s=pg_s)
+
+
+def run_sharded_phase(data, cfg, device, steps: int = STEPS):
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.schemes import MACContext, get_scheme
+    from repro_torch.kernels import ops
+    from repro_torch.optim.optim import Optimizer
+    from repro_torch.sharding import Mesh
+    from repro_torch.train.paper_repro import accuracy, init_linear, train_step
+    x_dev, y_dev, xte, yte = data
+    m = SHARDED_M
+    xd = torch.as_tensor(x_dev[:m], device=device)
+    yd = torch.as_tensor(y_dev[:m], device=device).long()
+    xt = torch.as_tensor(xte, device=device)
+    yt = torch.as_tensor(yte, device=device).long()
+    mesh2 = Mesh((m, SHARDED_SHARDS), ("dev", "shard"))
+    mesh1 = Mesh((m,), ("dev",))
+    slice_kw = dict(m=m, device_axes=("dev",), shard_axes=("shard",),
+                    d_pad=SHARDED_D_PAD)
+    runs = {
+        "a_sharded_round": ("sharded_round", mesh2, slice_kw),
+        "b_shard_decode": ("sharded_round", mesh2,
+                           dict(slice_kw, shard_decode=True)),
+        "c_round_sharded": ("round_sharded", mesh1,
+                            dict(m=m, device_axes=("dev",))),
+        "d_sites": ("sharded_round", mesh2,
+                    dict(slice_kw, groups=SHARDED_GROUPS, site_mac=True)),
+        "e_bf16_frame": ("sharded_round", mesh2,
+                         dict(slice_kw, frame_dtype=torch.bfloat16)),
+    }
+    # one launch per rank and round: sharded_round's encode projects and
+    # its decode decodes one block (EF runs in plain ops), round_sharded's
+    # encode runs all three main-path kernels
+    n2 = mesh2.size
+    per_round = {"sharded_round": {"ef_sparsify": 0, "ota_project": n2,
+                                   "ota_project_t": 0, "amp_fused": n2},
+                 "round_sharded": {"ef_sparsify": m, "ota_project": m,
+                                   "ota_project_t": 0, "amp_fused": m}}
+
+    # the simulated slice's round at the same config, for the turns
+    sim = get_scheme(cfg, 7850, m, device=device)
+    sim_opt = Optimizer(lr=1e-3)
+    sim_params = init_linear(xd.shape[-1], 10, device)
+    sim_state = sim_opt.init(sim_params)
+    sim_deltas = torch.zeros((m, 7850), device=device)
+    sim_key = rng.PRNGKey(1000, device=device)
+
+    def sim_round():
+        train_step(sim, sim_opt, sim_params, sim_state, sim_deltas, None, xd,
+                   yd, 0, sim_key)
+
+    total = {k: 0 for k in KERNELS}
+    out, ghats_of = {}, {}
+    for name, (driver, mesh, kw) in runs.items():
+        rounds = steps if name == "a_sharded_round" else SHARDED_SHORT
+        ctx = MACContext(use_kernel=True, **kw)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ghats, st, ms = sharded_train(xd, yd, cfg, driver, mesh, ctx, device,
+                                      rounds)
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        for k in total:
+            total[k] += launches[k]
+        want = {k: v * rounds for k, v in per_round[driver].items()}
+        check(launches == want, f"sharded {name}: launches {launches}, "
+              f"expected {want}")
+        check(bool(torch.isfinite(ghats).all()),
+              f"sharded {name}: non-finite estimate")
+        acc = float(accuracy(st["params"], xt, yt))
+        ghats_of[name] = ghats
+        step, _ = sharded_loop(xd, yd, cfg, driver, mesh, ctx, device)
+        round_ms, sim_ms = alternating_ms(lambda: step(0, sim_key), sim_round,
+                                          reps=2)
+        out[name] = dict(
+            driver=driver, mesh=list(mesh.shape), rank_threads=mesh.size,
+            rounds=rounds, final_acc=acc, ms_per_round=statistics.median(ms),
+            ms_per_round_all=ms, run_s=run_s,
+            launches_per_round={k: v / rounds for k, v in launches.items()},
+            turns=dict(sharded_ms_per_round=round_ms,
+                       simulated_ms_per_round=sim_ms))
+    check(out["a_sharded_round"]["final_acc"] > 0.5,
+          f"sharded (a): test accuracy {out['a_sharded_round']['final_acc']}"
+          f" after {steps} rounds")
+
+    def first_rounds(name, other, what):
+        n = other.shape[0]
+        check(torch.equal(ghats_of[name][:n], other),
+              f"sharded {name}: {what} differ in the first {n} rounds")
+
+    # with the kernels bitwise their own plain runs on the card
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    ops.reset_launches()
+    for name in ("a_sharded_round", "b_shard_decode", "c_round_sharded"):
+        driver, mesh, kw = runs[name]
+        plain, _, _ = sharded_train(xd, yd, plain_cfg, driver, mesh,
+                                    MACContext(use_kernel=False, **kw),
+                                    device, SHARDED_SHORT)
+        first_rounds(name, plain, "the kernel run's and the plain run's "
+                     "estimates")
+        out[name]["vs_plain"] = "bitwise"
+    check(sum(ops.launch_counts().values()) == 0,
+          "sharded: a plain run launched a kernel")
+    first_rounds("a_sharded_round", ghats_of["b_shard_decode"],
+                 "shard_decode's estimates and the full decode's")
+    out["b_shard_decode"]["vs_a"] = "bitwise"
+    again, _, _ = sharded_train(xd, yd, cfg, *runs["a_sharded_round"][:2],
+                                MACContext(use_kernel=True,
+                                           **runs["a_sharded_round"][2]),
+                                device, SHARDED_SHORT)
+    first_rounds("a_sharded_round", again, "two runs")
+    out["a_sharded_round"]["two_runs"] = "bitwise"
+    pg = run_process_group(xd[:2], yd[:2], device)
+    return dict(
+        phase="sharded", steps=steps, short_rounds=SHARDED_SHORT, d=7850,
+        d_pad=SHARDED_D_PAD,
+        config=dict(projection=cfg.projection, block_size=cfg.block_size,
+                    s_frac=cfg.s_frac, k_frac=cfg.k_frac,
+                    use_kernel=cfg.use_kernel, amp_iters=cfg.amp_iters),
+        launches=total, runs=out, process_group=pg)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1791,12 +2128,24 @@ def main() -> int:
     point_rows = check_point_rows(4, 25, d, n_blocks, c, s, k, device, gen)
     nonfinite = check_amp_fused_nonfinite(n_blocks, c, s, cfg.amp_iters,
                                           device, gen)
-    for rec in [*main_checks.values(), *extra, *cohort, points]:
+    # one rank's shapes on the sharded path: the 1 x 1 projection with a
+    # shard-folded seed, the one-block decode, and the decode at every
+    # device row's block id under shard_decode
+    from repro_torch.kernels import ref as kref
+    shard_seed = int(kref.splitmix32(kref.as_u32(cfg.seed) ^ kref.as_u32(1)))
+    sharded_shapes = [
+        check_ota_project(1, 1, c, s, cfg.rademacher, device, gen,
+                          bitwise=True, seed=shard_seed),
+        check_amp_fused(1, c, s, cfg.amp_iters, device, gen)]
+    offsets = check_amp_fused_offsets(c, s, cfg.amp_iters,
+                                      range(1, SHARDED_M), device, gen)
+    for rec in [*main_checks.values(), *extra, *cohort, points,
+                *sharded_shapes]:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
               other_shapes=extra, cohort_widths=cohort,
               point_axis=[points, point_rows], nonfinite=nonfinite,
-              not_ported=[]))
+              sharded_shapes=[*sharded_shapes, offsets], not_ported=[]))
 
     data, sl = run_slice(device)
     emit(sl)
@@ -1814,11 +2163,14 @@ def main() -> int:
     emit(lo)
     po = run_population_phase(data, cfg, device)
     emit(po)
+    sd = run_sharded_phase(data, cfg, device)
+    emit(sd)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],
              "channel": ch["launches"], "robust": rb["launches"],
-             "local": lo["launches"], "population": po["launches"]}
+             "local": lo["launches"], "population": po["launches"],
+             "sharded": sd["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -1844,6 +2196,12 @@ def main() -> int:
                     "host_us", "plain_ms", "bound", "bound_share",
                     "g1_launches_graph_ms", "max_active_clusters",
                     "clusters_launched", "graph_ms_by_points")}
+        if name in ("ota_project", "amp_fused"):
+            one = sharded_shapes[0 if name == "ota_project" else 1]
+            kernels[-1]["sharded_rank_shape"] = {
+                k: one[k] for k in ("shape", "kernel_ms", "graph_device_ms",
+                                    "plain_ms", "bound", "bound_share",
+                                    "library_ms", "max_abs_err")}
     check(len(kernels) == 4 and all(k["ported"] for k in kernels),
           "kernels: not all four TPU kernels are ported")
     emit({"kernels": kernels})

@@ -67,7 +67,13 @@ def frame_power(frame: torch.Tensor) -> torch.Tensor:
     return row_sum(frame * frame)
 
 
-def awgn(key: torch.Tensor, shape, sigma2: float) -> torch.Tensor:
+def awgn(key: torch.Tensor, shape, sigma2) -> torch.Tensor:
+    """``sqrt(sigma2) * normal(key, shape)`` (``(..., *shape)`` for a stack
+    of keys).  A 0-dim tensor ``sigma2`` (a channel's noise enhancement)
+    takes the form the reference's ``jit`` gives a traced scale: the draw's
+    ``sqrt(2)`` moved onto it (:func:`repro_torch.rng.normal_scaled`)."""
+    if isinstance(sigma2, torch.Tensor):
+        return rng.normal_scaled(key, shape, sqrt_f32(sigma2.float()))
     return float(np.sqrt(np.float32(sigma2))) * rng.normal(key, shape)
 
 
@@ -88,6 +94,39 @@ def mac_sum(frames: torch.Tensor, key: torch.Tensor, sigma2) -> torch.Tensor:
     scale = sqrt_f32(sigma2.to(torch.float32))[..., None]
     return rng.fma_f32(scale, rng.normal(key, shape), y)
 
+
+
+def site_awgn(key: torch.Tensor, shape, sigma2, n_sites: int,
+              site_noise_scale=1.0) -> torch.Tensor:
+    """Summed receiver noise of a hierarchical MAC of ``n_sites`` edge sites.
+
+    Site ``j`` adds AWGN of variance ``sigma2 * site_noise_scale`` keyed
+    ``fold_in(key, j)``; combining the sites' partial sums at the PS adds
+    their noises.  Both scalars are python floats or 0-dim float32 tensors;
+    a stack of keys ``(..., 2)`` gives ``(..., *shape)``, each key's noise.
+    As the reference's ``jit`` compiles it: the normal draw's ``sqrt(2)``
+    moves onto the scale ``c = sqrt(sigma2 * site_noise_scale)``, and the
+    sum over the sites takes each site's product with one fused
+    multiply-add, ``z = fma(e_j, c, z)`` in site order (bitwise
+    ``jax.jit`` of the reference up to 32 sites, the length XLA sums
+    without windows).
+    """
+    dev = key.device
+    site_dim = key.dim() - 1
+
+    def scalar(v):
+        # a python float filled on the device: no copy from the host
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float32)
+        return torch.full((), v, dtype=torch.float32, device=dev)
+    sig = scalar(sigma2) * scalar(site_noise_scale)
+    c = rng.sqrt2_times(sqrt_f32(sig))
+    e = rng.normal_over_sqrt2(
+        rng.fold_in(key, torch.arange(n_sites, device=dev)), shape)
+    z = e.select(site_dim, 0) * c
+    for j in range(1, n_sites):
+        z = rng.fma_f32(e.select(site_dim, j), c, z)
+    return z
 
 #: a received scale slot below this is indistinguishable from the unit-
 #: variance AWGN -- the PS then skips the rescale (scale 1.0) instead of

@@ -45,36 +45,84 @@ import copy
 import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, sharding
 from repro_torch.configs.base import OTAConfig
-from repro_torch.core import channel, compression, fading, geometry, power
+from repro_torch.core import (
+    channel, compression, distributed, fading, geometry, power,
+)
 from repro_torch.core.amp import amp_decode
 from repro_torch.core.projection import DenseProjector, make_projector
-from repro_torch.device import div_f32, per_point, resolve_device, take
-from repro_torch.kernels import ops
+from repro_torch.device import (
+    div_const, div_f32, per_point, resolve_device, take, xla_sum,
+)
+from repro_torch.kernels import ops, ref
 from repro_torch.robust import faults
+from repro_torch.robust.aggregators import _row_energy
 
 
 @dataclass(frozen=True)
 class MACContext:
-    """Context threaded through encode/decode on the simulated MAC.
+    """Topology and channel context threaded through encode/decode.
 
-    ``p_factor`` is the per-device received-power scale (``(M,)`` inside a
-    round, 1.0 on the AWGN MAC); ``use_kernel`` upgrades a blocked
-    projector to the CUDA kernels.  The reference's topology fields (mesh
-    axes, groups, slice-driver knobs) belong to drivers not ported yet.
+    One context describes one placement of the MAC: which mesh axes act as
+    OTA devices and which shard the d-vector (names of a
+    :class:`repro_torch.sharding.Mesh`), how devices group into edge sites
+    (index groups along the last device axis), and the per-device
+    received-power factor ``p_factor`` (``(M,)`` inside a simulated round,
+    1.0 on the AWGN MAC).  The slice driver's knobs follow, with the
+    reference's defaults; ``frame_dtype`` is a torch dtype (or ``None``)
+    for the analog body's psum, and ``use_kernel`` upgrades a blocked
+    projector and the slice helpers to the CUDA kernels.
     """
-    m: int = 1
-    p_factor: Any = 1.0
-    use_kernel: bool = False
+    m: int = 1                                   # effective OTA device count
+    device_axes: Tuple[str, ...] = ()            # mesh axes = MAC users
+    shard_axes: Tuple[str, ...] = ()             # mesh axes sharding d
+    groups: Optional[Tuple[Tuple[int, ...], ...]] = None   # edge-site groups
+    fading: str = "none"                         # descriptive channel model
+    csi: str = "perfect"                         # descriptive CSI model
+    p_factor: Any = 1.0                          # received-power scale
+    # slice-driver geometry and knobs
+    d_pad: int = 0                               # global padded dimension
+    p_scale: float = 1.0                         # power share of this frame
+    key_salt: int = 0                            # decorrelates sub-frames
+    sample_per_shard: int = 4096                 # threshold sample budget
+    chunk_blocks: int = 8                        # A-matrix working set
+    frame_dtype: Any = None                      # psum analog bodies narrow
+    shard_decode: bool = False                   # split the PS AMP over rows
+    use_kernel: bool = False                     # CUDA projection / AMP
+    # hierarchical MAC: each edge-site group receives its own AWGN
+    site_mac: bool = False
+    site_noise_scale: Any = 1.0                  # per-site variance scale
+
+    @property
+    def group_size(self) -> int:
+        return len(self.groups[0]) if self.groups else 1
 
     def with_p_factor(self, p_factor) -> "MACContext":
         return dataclasses.replace(self, p_factor=p_factor)
+
+
+def axis_size(ax: str) -> int:
+    """Size of a mesh axis of the calling rank (inside ``shard_map``)."""
+    return sharding.axis_size(ax)
+
+
+def shard_info(shard_axes: Sequence[str]):
+    """``(shard_idx, n_shards)`` of the calling rank along ``shard_axes``:
+    the row-major index over those axes as a 0-dim int64-held uint32 tensor
+    on the host (seeds and keys fold it), and their total size."""
+    n_shards = 1
+    shard_idx = 0
+    for ax in shard_axes:
+        sz = axis_size(ax)
+        shard_idx = shard_idx * sz + sharding.axis_index(ax)
+        n_shards *= sz
+    return ref.as_u32(shard_idx), n_shards
 
 
 class ChannelDraw(NamedTuple):
@@ -339,6 +387,21 @@ class Scheme:
         # and must agree with round_simulated bitwise on the card too
         return div_f32(y, m)
 
+    # ------------------------------------------------------ slice hooks
+    # Optional: schemes that run on gradient slices (the fully-sharded
+    # driver, core/distributed.py) implement these.  The frame is a dict
+    # with a "body" tensor (psum'd over the device axes, optionally in a
+    # narrow dtype) and optional "slots" scalars (float32).
+    def encode_slice(self, g_slice, state_slice, step, key, ctx: MACContext):
+        raise NotImplementedError(
+            f"scheme {self.name!r} does not support the sharded slice "
+            "driver (needs a slice-local encode); use the simulated or "
+            "round_sharded drivers")
+
+    def decode_slice(self, y: Dict[str, torch.Tensor], step,
+                     ctx: MACContext):
+        raise NotImplementedError
+
 
 @register_scheme("ideal")
 class IdealScheme(Scheme):
@@ -349,6 +412,14 @@ class IdealScheme(Scheme):
 
     def encode(self, g, state, step, keys, ctx=None):
         return g.float(), state, {}
+
+    # slice driver: the MAC psum is the aggregation
+    def encode_slice(self, g_slice, state_slice, step, key, ctx):
+        return ({"body": g_slice}, state_slice,
+                {"p_t": torch.zeros((), device=g_slice.device)})
+
+    def decode_slice(self, y, step, ctx):
+        return div_const(y["body"], ctx.m)
 
 
 @register_scheme("a_dsgd")
@@ -422,6 +493,102 @@ class ADSGDScheme(Scheme):
     def silent_state(self, g, state, new_state):
         # a device that could not transmit banks its whole update
         return (g + state).to(new_state.dtype)
+
+    # ------------------------------------------------------ slice hooks
+    # The fully-sharded pipeline: every rank owns a (d_pad / n_shards)
+    # slice.  EF, thresholding, projection and the power scalars are
+    # slice-local; cross-shard traffic is the threshold's sample gather and
+    # scalar psums.  Each shard's A comes from a shard-folded seed, which
+    # the PS side folds the same way.
+
+    def _slice_seed(self, ctx: MACContext):
+        """``(seed, shard_idx)``: ``splitmix32(cfg.seed ^ shard_idx)`` as a
+        python int (the kernels copy it to the card once per value) and the
+        shard's index."""
+        shard_idx, _ = shard_info(ctx.shard_axes)
+        seed = ref.splitmix32(ref.as_u32(self.cfg.seed) ^ shard_idx)
+        return int(seed), shard_idx
+
+    def encode_slice(self, g_slice, state_slice, step, key, ctx):
+        cfg = self.cfg
+        d_pad = ctx.d_pad
+        d_local = g_slice.shape[0]
+
+        # error feedback and the sampled global threshold
+        g_ec = g_slice + state_slice.float()
+        k = max(1, int(cfg.k_frac * cfg.s_frac * d_pad))
+        stride = max(1, d_local // ctx.sample_per_shard)
+        n_s = d_local // stride
+        local_sample = g_ec[0:n_s * stride:stride].abs()
+        all_samples = (sharding.all_gather(local_sample,
+                                           ctx.shard_axes).reshape(-1)
+                       if ctx.shard_axes else local_sample)
+        tau = compression._quantile_linear(all_samples, 1.0 - k / d_pad)
+        keep = g_ec.abs() >= tau
+        g_sp = torch.where(keep, g_ec, 0.0)
+        new_state = (g_ec - g_sp).to(state_slice.dtype)
+
+        # blocked projection with the shard-folded seed
+        c = cfg.block_size
+        s_block = max(2, int(round(cfg.s_frac * c)))
+        seed, _ = self._slice_seed(ctx)
+        yb = distributed.proj_forward(
+            g_sp.reshape(d_local // c, c), seed, s_block, ctx.chunk_blocks,
+            use_kernel=self._use_kernel(ctx))
+
+        # power scaling (paper eq. 13/22), the scalars psum'd over shards;
+        # ctx.p_factor is this device's received-power factor
+        p_t = self.p_t(step, ctx.p_factor) * ctx.p_scale
+        use_mr = float(step < cfg.mean_removal_steps)
+        s_tilde = float((d_pad // c) * s_block)       # global channel dim
+        y_sum, y_energy = _slice_sums(yb)
+        mu = div_const(use_mr * distributed.psum_all(y_sum, ctx.shard_axes),
+                       s_tilde)
+        energy = distributed.psum_all(y_energy, ctx.shard_axes)
+        energy_az = rng.fma_f32(-(s_tilde - 1.0) * mu, mu, energy) + 1.0
+        alpha = p_t / torch.clamp(energy_az, min=1e-12)
+        ra = torch.sqrt(alpha)
+        frame = {"body": ra * (yb - mu), "slots": torch.stack([ra * mu, ra])}
+        metrics = {"alpha": alpha, "p_t": p_t, "tau": tau,
+                   "frame_power": alpha * energy_az}
+        return frame, new_state, metrics
+
+    def decode_slice(self, y, step, ctx):
+        cfg = self.cfg
+        body, slots = y["body"], y["slots"]
+        use_mr = float(step < cfg.mean_removal_steps)
+        # a noise-dominated scale slot falls back to 1.0, as in
+        # channel.ps_normalize
+        scale = torch.where(slots[1] > channel.SCALE_SLOT_FLOOR, slots[1],
+                            1.0)
+        y_norm = (body + use_mr * slots[0]) / scale
+        seed, _ = self._slice_seed(ctx)
+        use_kernel = self._use_kernel(ctx)
+        c = cfg.block_size
+        if ctx.shard_decode and ctx.device_axes:
+            # y is the same on every device row after the psum: each row
+            # decodes 1/rows of its blocks (padded to a multiple of the
+            # rows) with their global ids, and the rows' results are
+            # gathered
+            n_rows, row_idx = 1, 0
+            for ax in ctx.device_axes:
+                sz = axis_size(ax)
+                row_idx = row_idx * sz + sharding.axis_index(ax)
+                n_rows *= sz
+            nb = y_norm.shape[0]
+            nb_pad = -(-nb // n_rows) * n_rows
+            y_p = torch.cat([y_norm, y_norm.new_zeros(nb_pad - nb,
+                                                      y_norm.shape[1])])
+            per = nb_pad // n_rows
+            y_mine = y_p[row_idx * per:(row_idx + 1) * per].contiguous()
+            x_mine = distributed.amp_blocked(
+                y_mine, seed, c, cfg.amp_iters, ctx.chunk_blocks,
+                id_offset=row_idx * per, use_kernel=use_kernel)
+            xg = sharding.all_gather(x_mine, ctx.device_axes, tiled=True)
+            return xg[:nb].reshape(-1)
+        return distributed.amp_blocked(
+            y_norm, seed, c, cfg.amp_iters, ctx.chunk_blocks,
+            use_kernel=use_kernel).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -588,6 +755,16 @@ def registered_schemes() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
+def _slice_sums(yb: torch.Tensor):
+    """``(sum(yb), sum(yb * yb))`` of a shard's projected blocks in XLA's
+    CPU order for one block (:func:`repro_torch.device.xla_sum`, the
+    squares as ``robust.aggregators._row_energy`` sums a row).  For
+    several blocks XLA orders the 2-D reduction otherwise, which is not
+    reproduced (ROADMAP queue 3)."""
+    flat = yb.reshape(-1)
+    return xla_sum(flat), _row_energy(flat)[0]
+
+
 def metric_mean(v: torch.Tensor) -> torch.Tensor:
     """The mean over the device axis of one per-device metric, per point.
 
@@ -670,3 +847,73 @@ def round_simulated(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     if draw.noise_scale is not None:
         metrics["noise_scale"] = draw.noise_scale.expand(lead)
     return ghat, new_deltas, metrics
+
+
+def sharded_channel_draw(scheme: Scheme, key: torch.Tensor, step,
+                         ctx: MACContext) -> ChannelDraw:
+    """This rank's channel realisation inside ``shard_map``.
+
+    Every rank evaluates the full-M draw from the shared round key (salt
+    2, as :func:`round_simulated`) and takes its device row's entry: the
+    realisation is common knowledge, which the correlated processes and
+    the blind PS combiner (whose gain couples all devices) need.
+    """
+    dev_idx, _ = shard_info(ctx.device_axes)
+    draw = scheme.channel_draw(rng.fold_in(key, 2), step, ctx.m)
+    row = int(dev_idx)
+
+    def pick(v):
+        return None if v is None else v[row]
+    return ChannelDraw(pick(draw.p_factor), pick(draw.active),
+                       gain=pick(draw.gain), noise_scale=draw.noise_scale)
+
+
+def round_sharded(scheme: Scheme, g_local: torch.Tensor,
+                  delta_local: torch.Tensor, step: int, key: torch.Tensor,
+                  ctx: MACContext):
+    """One aggregation round inside ``shard_map``, one device per rank of
+    ``ctx.device_axes``: ``g_local``, ``delta_local`` are this device's
+    ``(d,)`` gradient and error state.  Returns ``(ghat, new_delta,
+    metrics)``.
+
+    ``ctx.groups``: optional index groups along the last device axis for
+    the ideal intra-site average (an edge-site mapping); the MAC psum then
+    runs over all devices and is divided by the group size.  RNG salts as
+    in :func:`round_simulated`: ``fold_in(key, 1)`` the device's encode
+    (one key: the port's ``encode`` takes this one row as a stack of one),
+    ``fold_in(key, 2)`` the channel draw, ``fold_in(key, 0)`` the AWGN.
+    """
+    group_size = ctx.group_size
+    if ctx.groups is not None:
+        g_local = div_const(sharding.psum(g_local, ctx.device_axes[-1],
+                                          groups=ctx.groups), group_size)
+    p_factor = 1.0
+    if scheme.analog:
+        draw = sharded_channel_draw(scheme, key, step, ctx)
+        p_factor = draw.p_factor[None]
+    frames, new_deltas, metrics = scheme.encode(
+        g_local[None], delta_local[None], step,
+        rng.fold_in(key, 1)[None], ctx.with_p_factor(p_factor))
+    frame, new_delta = frames[0], new_deltas[0]
+    metrics = {k: v.reshape(-1)[0] for k, v in metrics.items()}
+    if scheme.analog:
+        frame = frame * channel_amp(draw, frame.dtype)
+        new_delta = torch.where(draw.active, new_delta,
+                                scheme.silent_state(g_local, delta_local,
+                                                    new_delta))
+    y = distributed.psum_all(frame, ctx.device_axes)
+    if group_size > 1:
+        y = div_const(y, group_size)
+    if scheme.analog:
+        mac_key = rng.fold_in(key, 0)
+        sigma2 = round_sigma2(scheme, draw)
+        if ctx.site_mac and ctx.groups is not None and len(ctx.groups) > 1:
+            # each edge-site group's partial OTA sum carries its own
+            # receiver noise, summed by the backhaul combine
+            y = y + channel.site_awgn(mac_key, y.shape, sigma2,
+                                      len(ctx.groups),
+                                      site_noise_scale=ctx.site_noise_scale)
+        else:
+            y = y + channel.awgn(mac_key, y.shape, sigma2)
+    ghat = scheme.decode(y, step, ctx)
+    return ghat, new_delta, metrics

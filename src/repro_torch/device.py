@@ -6,6 +6,7 @@ callers ask for ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,6 +41,15 @@ def div_f32(t: torch.Tensor, n) -> torch.Tensor:
     if isinstance(n, torch.Tensor):
         return t / n
     return t / torch.full((), n, dtype=torch.float32, device=t.device)
+
+
+def div_const(t: torch.Tensor, n) -> torch.Tensor:
+    """``t / n`` for a python constant ``n`` as the reference's ``jit``
+    compiles it: XLA's CPU backend multiplies by the float32 reciprocal
+    ``f32(1) / f32(n)``, which misses the true quotient by an ulp where
+    ``1/n`` is inexact (``n = 3``, ``5``, ``25``).  The product with a
+    python float is the same float32 multiply on every device."""
+    return t * float(np.float32(1.0) / np.float32(n))
 
 
 def per_point(fn, *xs: torch.Tensor, rank: int):

@@ -92,7 +92,8 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
         int(debias), int(rademacher), ref.entry_scale(s_block),
         build.current_stream(yb.device))
     build.check(rc, "amp_decode_fused")
-    launches += 1
+    with build.LAUNCH_LOCK:
+        launches += 1
     return xb
 
 

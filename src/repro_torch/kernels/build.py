@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -113,19 +114,36 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_library = None
+_library_lock = threading.Lock()
+
+#: held while a wrapper adds one to its launch count: rank threads of a
+#: mesh launch the kernels concurrently, and ``launches += 1`` is a read,
+#: an add and a write that two threads can interleave
+LAUNCH_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.
 
     Its entry points are bound here once, with their C signatures: ctypes
     keeps each bound function as an attribute of the library object, so a
-    launch's ``library().name`` is a cache hit and an attribute read.
+    launch's ``library().name`` is an attribute read.  The first call
+    builds and loads under a lock, so rank threads that reach their first
+    launch together start one ``nvcc`` build, not one each.
     """
-    lib = ctypes.CDLL(str(build()))
-    for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+    global _library
+    lib = _library
+    if lib is None:
+        with _library_lock:
+            if _library is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, (restype, argtypes) in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                _library = lib
+            lib = _library
     return lib
 
 

@@ -52,5 +52,6 @@ def _launch(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
         g.data_ptr(), delta.data_ptr(), tau.data_ptr(), g_sp.data_ptr(),
         new_delta.data_ptr(), m, n, build.current_stream(g.device))
     build.check(rc, "ef_sparsify")
-    launches += 1
+    with build.LAUNCH_LOCK:
+        launches += 1
     return g_sp, new_delta

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import amp_fused, ef_sparsify as _ef, ota_project as _otp
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 
 def ota_project(x: torch.Tensor, *, seed, s_block: int,
@@ -60,12 +60,15 @@ def ef_sparsify(g: torch.Tensor, delta: torch.Tensor, tau, *,
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last :func:`reset_launches`."""
-    return {"ef_sparsify": _ef.launches, "ota_project": _otp.launches,
-            "ota_project_t": _otp.launches_t, "amp_fused": amp_fused.launches}
+    with build.LAUNCH_LOCK:
+        return {"ef_sparsify": _ef.launches, "ota_project": _otp.launches,
+                "ota_project_t": _otp.launches_t,
+                "amp_fused": amp_fused.launches}
 
 
 def reset_launches() -> None:
-    _ef.launches = 0
-    _otp.launches = 0
-    _otp.launches_t = 0
-    amp_fused.launches = 0
+    with build.LAUNCH_LOCK:
+        _ef.launches = 0
+        _otp.launches = 0
+        _otp.launches_t = 0
+        amp_fused.launches = 0

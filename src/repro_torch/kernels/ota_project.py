@@ -80,7 +80,8 @@ def _launch(x: torch.Tensor, seed, s_block: int,
         int(rademacher), ref.entry_scale(s_block),
         build.current_stream(x.device))
     build.check(rc, "ota_project")
-    launches += 1
+    with build.LAUNCH_LOCK:
+        launches += 1
     return y
 
 
@@ -112,5 +113,6 @@ def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
         int(rademacher), ref.entry_scale(s_block),
         build.current_stream(y.device))
     build.check(rc, "ota_project_t")
-    launches_t += 1
+    with build.LAUNCH_LOCK:
+        launches_t += 1
     return r

@@ -1223,3 +1223,130 @@ def test_population_grid_equals_runs_on_card(dev):
     rec = res.record(avail_rate=0.5, k_active=32)
     idx = engine.eval_indices(6, 2)
     assert rec["losses"] == own["loss"].cpu().numpy()[idx].tolist()
+
+
+# ---------------------------------------------------------------------------
+# the sharded slice drivers: the kernels at one rank's shapes, per rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+def test_ota_project_one_shard_block_bitwise(dev, shard):
+    """One rank's projection in sharded_round at full width: 1 row x 1
+    block, 4096 -> 1024, with the shard-folded seed; bitwise the plain
+    version and the slice driver's plain chunked projection."""
+    from repro_torch.core import distributed
+    seed = int(ref.splitmix32(ref.as_u32(0) ^ ref.as_u32(shard)))
+    x = torch.randn(1, 4096, generator=_gen(dev, 40 + shard), device=dev)
+    x = torch.where(x.abs() > 1.2, x, 0.0)
+    before = ota_project.launches
+    y = ota_project.ota_project(x, seed, 1024)
+    assert ota_project.launches == before + 1
+    assert torch.equal(y, ref.ota_project_ref(x, seed, 1024))
+    assert torch.equal(y, distributed.proj_forward(x, seed, 1024, 8))
+
+
+@pytest.mark.parametrize("offset", [1, 7, 24])
+def test_amp_fused_one_block_at_offset_bitwise(dev, offset):
+    """shard_decode's one-block decode with the global block id: a noisy
+    block and a padded all-zero block, bitwise the plain version."""
+    from repro_torch.core.amp import amp_blocked_core
+    seed = 12345
+    gen = _gen(dev, offset)
+    x = torch.zeros(1, 4096, device=dev)
+    idx = torch.randperm(4096, generator=gen, device=dev)[:128]
+    x[0, idx] = torch.randn(128, generator=gen, device=dev)
+    A = ref.block_matrix_ref(seed, torch.tensor([offset], device=dev), 1024,
+                             4096)
+    y = ref.contract("isc,ic->is", A, x) + 0.01 * torch.randn(
+        1, 1024, generator=gen, device=dev)
+    for yb in (y, torch.zeros_like(y)):
+        got = amp_fused.amp_decode_fused(yb, seed, 4096, iters=20,
+                                         id_offset=offset)
+        want = amp_blocked_core(yb, seed, 4096, 20, id_offset=offset)
+        assert torch.equal(got, want)
+    assert float((got - x).norm()) >= 0.0
+
+
+def _sharded_inputs(dev, m, d_pad):
+    gen = _gen(dev, m * 31)
+    g = torch.randn(m, d_pad, generator=gen, device=dev) * 0.05
+    g[:, 7850:] = 0.0
+    return g, torch.zeros_like(g)
+
+
+@pytest.mark.parametrize("shard_decode", [False, True])
+def test_sharded_round_kernels_bitwise_plain_on_card(dev, shard_decode):
+    """A 4 x 2 thread mesh at full width (d_pad 8192, one 4096 block per
+    shard): with the kernels bitwise the plain run on the card, the
+    shard_decode run bitwise the full decode, and each rank launching
+    ota_project and amp_fused once (8 and 8), ef_sparsify never."""
+    from repro_torch import rng as trng
+    from repro_torch.configs.base import ota_overrides
+    from repro_torch.core import distributed
+    from repro_torch.core.schemes import MACContext, get_scheme
+    from repro_torch.sharding import Mesh, P, shard_map
+    g, dl = _sharded_inputs(dev, 4, 8192)
+    mesh = Mesh((4, 2), ("dev", "shard"))
+    out = {}
+    for uk, sd in ((True, shard_decode), (False, shard_decode),
+                   (True, not shard_decode)):
+        cfg = dataclasses.replace(ota_overrides("mnist_mlp"), use_kernel=uk,
+                                  amp_iters=20, total_steps=20)
+        sch = get_scheme(cfg, 7850, 4, device=dev)
+        ctx = MACContext(m=4, device_axes=("dev",), shard_axes=("shard",),
+                         d_pad=8192, use_kernel=uk, shard_decode=sd)
+
+        def body(g, dl, sch=sch, ctx=ctx):
+            ghat, nd, _ = distributed.sharded_round(
+                sch, g.reshape(-1), dl.reshape(-1), 0,
+                trng.PRNGKey(1000, device=dev), ctx)
+            return ghat, nd.reshape(1, -1)
+
+        ops.reset_launches()
+        out[uk, sd] = shard_map(body, mesh, (P("dev", "shard"),) * 2,
+                                (P("shard"), P("dev", "shard")))(g, dl)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts == ({"ef_sparsify": 0, "ota_project": 8,
+                           "ota_project_t": 0, "amp_fused": 8} if uk else
+                          {"ef_sparsify": 0, "ota_project": 0,
+                           "ota_project_t": 0, "amp_fused": 0}), counts
+    for a, b in zip(out[True, shard_decode], out[False, shard_decode]):
+        assert torch.equal(a, b)
+    for a, b in zip(out[True, shard_decode], out[True, not shard_decode]):
+        assert torch.equal(a, b)
+    assert torch.isfinite(out[True, shard_decode][0]).all()
+
+
+def test_round_sharded_kernels_bitwise_plain_on_card(dev):
+    """round_sharded on 4 rank threads at the slice's width (d = 7850, two
+    blocks): one launch of each main-path kernel per rank, bitwise the
+    plain run."""
+    from repro_torch import rng as trng
+    from repro_torch.configs.base import ota_overrides
+    from repro_torch.core.schemes import MACContext, get_scheme, round_sharded
+    from repro_torch.sharding import Mesh, P, shard_map
+    g, dl = _sharded_inputs(dev, 4, 7850)
+    out = {}
+    for uk in (True, False):
+        cfg = dataclasses.replace(ota_overrides("mnist_mlp"), use_kernel=uk,
+                                  amp_iters=20, total_steps=20)
+        sch = get_scheme(cfg, 7850, 4, device=dev)
+        ctx = MACContext(m=4, device_axes=("dev",), use_kernel=uk)
+
+        def body(g, dl, sch=sch, ctx=ctx):
+            ghat, nd, _ = round_sharded(sch, g.reshape(-1), dl.reshape(-1),
+                                        0, trng.PRNGKey(1000, device=dev),
+                                        ctx)
+            return ghat, nd.reshape(1, -1)
+
+        ops.reset_launches()
+        out[uk] = shard_map(body, Mesh((4,), ("dev",)), (P("dev"),) * 2,
+                            (P(), P("dev")))(g, dl)
+        torch.cuda.synchronize()
+        n = 4 if uk else 0
+        assert ops.launch_counts() == {"ef_sparsify": n, "ota_project": n,
+                                       "ota_project_t": 0, "amp_fused": n}
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
