@@ -153,13 +153,34 @@ Phases, one JSON line each:
             3 rounds, bitwise the thread mesh at 2 x 2.  Per run: test
             accuracy, ms per round (CUDA events, median) and, in turns, one
             sharded round beside the simulated slice's round;
-13. kernels the per-kernel record: route, source, the TPU kernel it
+13. fedllm the streamed federated LLM round (``train/fedllm.py``,
+            ``CompiledFedLLM``) at smollm-360m's published widths (d =
+            361 821 120, seeded random weights), ``TrainConfig()`` defaults
+            (bfloat16 compute, remat, Adam with warmup),
+            ``ota_overrides("smollm_360m")`` with use_kernel: (a) m = 4
+            devices of 2 x 16 tokens, chunk_size 2**22 (87 chunks of 1024
+            blocks), one warm-up round and 2 timed rounds through
+            ``run_segment``, each with exactly 87 launches of ef_sparsify,
+            ota_project and amp_fused; ms per round by CUDA events, its
+            split into gradients, stream and Adam, peak allocated memory,
+            finite losses; (b) on those gradients the first two chunks'
+            ``stream_round`` bitwise its use_kernel=False run and its
+            ``stream_round_ref`` on the card; (c) the default chunk_size
+            2**14: ``stream_round`` over the first 64 chunks, ms per chunk
+            and that times 22 084 as the projected round;
+14. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
+The kernel_checks line's ``streamed_shapes`` holds the kernels at the
+fedllm phase's shapes, each bitwise its plain version: ef_sparsify on 4 x
+16 384 and 4 x 4 194 304, ota_project on 4 x 4 and 4 x 1024 blocks of
+4096 -> 1024, amp_fused on 4 and 1024 blocks (the shapes of a 2**22
+chunk time with fewer repetitions: a call takes tens of ms).
+
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
-population, each run of sharded) runs with every launch count set to 0
-just before it and read just after.
+population, each run of sharded, fedllm's timed rounds) runs with every
+launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -171,6 +192,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,6 +244,7 @@ KERNELS = {
 KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
                "ota_project_t": "unfused_decode", "amp_fused": "slice"}
 PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
+                "fedllm": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
@@ -277,6 +300,19 @@ SHARDED_GROUPS = tuple(tuple(range(5 * i, 5 * i + 5)) for i in range(5))
 SHARDED_SHORT = 5
 #: rounds of the 2 x 2 process-group mesh held against the thread mesh
 PG_ROUNDS = 3
+#: the fedllm phase: smollm-360m at its published widths, the reference's
+#: CompiledFedLLM defaults (m = 4, batch 2, seq 16), chunks of 2**22 (87 a
+#: round), one warm-up round and two timed ones; the default 2**14 chunk
+#: is timed over its first 64 chunks of a round's 22 084
+FEDLLM_ARCH = "smollm_360m"
+FEDLLM_M, FEDLLM_BATCH, FEDLLM_SEQ = 4, 2, 16
+FEDLLM_CHUNK, FEDLLM_CHUNKS = 1 << 22, 87
+FEDLLM_ROUNDS = 2
+FEDLLM_D = 361_821_120
+FEDLLM_DEFAULT_CHUNK, FEDLLM_DEFAULT_CHUNKS = 1 << 14, 22_084
+FEDLLM_TIMED_CHUNKS = 64
+#: chunks of the 2**22 stream held bitwise against the plain run
+FEDLLM_PLAIN_CHUNKS = 2
 
 
 class CheckFailed(RuntimeError):
@@ -403,20 +439,32 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
     return seconds / n * 1e6
 
 
-def timings(fn, plain, library=None) -> dict:
+def timings(fn, plain, library=None, light: bool = False) -> dict:
     """Every time of a kernel check: the kernel's wrapper ``fn`` four ways,
     its plain version per call, and the one-call yardstick ``library``
-    (``None`` where there is none) per call, back to back and by replay."""
-    out = dict(kernel_ms=cuda_ms(fn), device_ms=device_ms(fn),
-               graph_device_ms=graph_ms(fn), host_us=host_us(fn),
-               plain_ms=cuda_ms(plain))
+    (``None`` where there is none) per call, back to back and by replay.
+    ``light`` cuts the repetitions for calls of tens of milliseconds (the
+    1024-block shapes of a streamed chunk): 5 timed calls, 5 back to back,
+    2 calls captured and replayed 3 times, 5 host calls, one plain call."""
+    if light:
+        kw = dict(warmup=1, reps=5)
+        rate, graph = dict(warmup=1, n=5), dict(warmup=1, n=2, replays=3)
+        out = dict(kernel_ms=cuda_ms(fn, **kw), device_ms=device_ms(fn, **rate),
+                   graph_device_ms=graph_ms(fn, **graph),
+                   host_us=host_us(fn, n=5),
+                   plain_ms=cuda_ms(plain, warmup=0, reps=1))
+    else:
+        kw, rate, graph = {}, {}, {}
+        out = dict(kernel_ms=cuda_ms(fn), device_ms=device_ms(fn),
+                   graph_device_ms=graph_ms(fn), host_us=host_us(fn),
+                   plain_ms=cuda_ms(plain))
     if library is None:
         out.update(library_ms=None, library_device_ms=None,
                    library_graph_ms=None)
     else:
-        out.update(library_ms=cuda_ms(library),
-                   library_device_ms=device_ms(library),
-                   library_graph_ms=graph_ms(library))
+        out.update(library_ms=cuda_ms(library, **kw),
+                   library_device_ms=device_ms(library, **rate),
+                   library_graph_ms=graph_ms(library, **graph))
     return out
 
 
@@ -582,10 +630,12 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
 
 
 def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
-                    rademacher: bool = True):
+                    rademacher: bool = True, bitwise: bool = False,
+                    light: bool = False):
     import torch
     from repro_torch.core.amp import amp_blocked_core
-    from repro_torch.kernels import amp_fused, build, layout, ref
+    from repro_torch.core.projection import BlockedProjector
+    from repro_torch.kernels import amp_fused, build, layout
     seed = 777
     # a block-sparse signal (k/s = 1/8, well inside AMP's recovery region at
     # s/c = 1/4) observed with noise, as the main path's y carries AWGN.
@@ -593,7 +643,11 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
     # support of the near-zero entries turns on rounding: there two plain
     # float32 and float64 decodes of one input already differ past the bar
     x = block_sparse(n_blocks, c, s // 8, gen, device)
-    yb = ref.ota_project_ref(x, seed, s, rademacher) \
+    # the projector's plain products: A made a few blocks at a time beyond
+    # its working-set budget (a 1024-block A is 17 GB)
+    proj = BlockedProjector(d=n_blocks * c, block_size=c, s_block=s,
+                            seed=seed, rademacher=rademacher)
+    yb = proj.project_blocks(x) \
         + 0.01 * torch.randn(n_blocks, s, generator=gen, device=device)
     kw = dict(iters=iters, rademacher=rademacher)
     out = amp_fused.amp_decode_fused(yb, seed, c, **kw)
@@ -608,6 +662,9 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
           f"amp_fused {n_blocks}x{s}->{c}: "
           + mismatch(out, want, 1e-4, 1e-5))
     check(torch.equal(out, again), "amp_fused: two runs differ")
+    check(not bitwise or torch.equal(out, want),
+          f"amp_fused {n_blocks}x{s}->{c}: not bitwise equal to its plain "
+          "version: " + mismatch(out, want, 0, 0))
     check(torch.equal(part, out[half:]),
           "amp_fused: the id_offset sub-range is not bitwise the full "
           "decode's rows")
@@ -629,8 +686,75 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
         bitwise=bool(torch.equal(out, want)), recovery_rel_err=recovery,
         **timings(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw),
                   lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
-                                           **kw)),
+                                           **kw), light=light),
         bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
+
+
+def check_ota_project_streamed(m: int, n_blocks: int, c: int, s: int,
+                               device, gen, seed: int = 0):
+    """ota_project at a streamed chunk's shape with Rademacher entries,
+    bitwise its plain version as the scheme runs it on the card: the
+    projector's plain products, which make A eight blocks at a time (a
+    4 x 1024 x 4096 chunk's A is 17 GB).  The yardstick is one
+    ``torch.bmm`` on A materialised beforehand, eight blocks at a time
+    into one float32 tensor."""
+    import torch
+    from repro_torch.core.projection import BlockedProjector
+    from repro_torch.kernels import ota_project, ref
+    proj = BlockedProjector(d=n_blocks * c, block_size=c, s_block=s,
+                            seed=seed, rademacher=True)
+    x = torch.randn(m, n_blocks, c, generator=gen, device=device)
+    y = ota_project.ota_project(x, seed, s, True)
+    want = proj.project_blocks(x)
+    again = ota_project.ota_project(x, seed, s, True)
+    torch.cuda.synchronize()
+    check(torch.equal(y, again), "ota_project: two runs differ")
+    check(torch.equal(y, want),
+          f"ota_project {m}x{n_blocks}x{c}->{s}: not bitwise equal to its "
+          "plain version: " + mismatch(y, want, 0, 0))
+    A = torch.empty((n_blocks, s, c), device=device)
+    for b0 in range(0, n_blocks, 8):
+        ids = torch.arange(b0, min(b0 + 8, n_blocks), device=device)
+        A[b0:b0 + len(ids)] = ref.block_matrix_ref(seed, ids, s, c, True)
+    xt = x.permute(1, 2, 0).contiguous()                  # (n_blocks, c, m)
+    entries = n_blocks * s * c
+    light = n_blocks > 8
+    out = dict(
+        kernel="ota_project", shape=[m, n_blocks, c, s],
+        entries="rademacher", tol="bitwise", bitwise=True,
+        max_abs_err=errors(y, want)[0], max_rel_err=0.0,
+        **timings(lambda: ota_project.ota_project(x, seed, s, True),
+                  lambda: proj.project_blocks(x), lambda: torch.bmm(A, xt),
+                  light=light),
+        bound=bound(4 * (m * n_blocks * c + m * n_blocks * s),
+                    entries * HASH_OPS + 2 * m * entries))
+    del A
+    return out
+
+
+def check_streamed_shapes(device, gen) -> list:
+    """The three main-path kernels at the fedllm phase's shapes, bitwise
+    their plain versions: a 2**14 chunk (4 blocks) and a 2**22 chunk (1024
+    blocks) of ``ota_overrides`` (c 4096, s 1024, k half the channel
+    uses), for m = 4 devices."""
+    import torch
+    from repro_torch.configs.base import ota_overrides
+    ota = ota_overrides(FEDLLM_ARCH)
+    c = ota.block_size
+    s = max(2, int(round(ota.s_frac * c)))
+    out = []
+    for chunk in (FEDLLM_DEFAULT_CHUNK, FEDLLM_CHUNK):
+        n_blocks = chunk // c
+        k = max(1, int(ota.k_frac * n_blocks * s))
+        out.append(check_ef_sparsify(FEDLLM_M, chunk, k, device, gen))
+        out.append(check_ota_project_streamed(FEDLLM_M, n_blocks, c, s,
+                                              device, gen))
+        out.append(check_amp_fused(n_blocks, c, s, ota.amp_iters, device,
+                                   gen, bitwise=True, light=n_blocks > 8))
+        torch.cuda.empty_cache()
+    for rec in out:
+        rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
+    return out
 
 
 def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
@@ -2052,6 +2176,158 @@ def run_sharded_phase(data, cfg, device, steps: int = STEPS):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the streamed federated LLM round at full width
+# ---------------------------------------------------------------------------
+
+
+def _events_ms(fn):
+    """``fn()``'s result and its time in ms between two CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_fedllm_phase(device, slice_line):
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.core.schemes import MACContext, get_scheme
+    from repro_torch.experiments.engine import round_keys
+    from repro_torch.kernels import ops
+    from repro_torch.train import fedllm
+
+    arch = get_config(FEDLLM_ARCH)
+    ota = dataclasses.replace(ota_overrides(FEDLLM_ARCH), use_kernel=True)
+    train_cfg = TrainConfig()
+    kw = dict(m=FEDLLM_M, batch=FEDLLM_BATCH, seq_len=FEDLLM_SEQ, seed=0,
+              device=device)
+    fed = fedllm.CompiledFedLLM(arch, train_cfg, ota,
+                                chunk_size=FEDLLM_CHUNK, **kw)
+    check(fed.d == FEDLLM_D and fed.n_chunks == FEDLLM_CHUNKS,
+          f"fedllm: d {fed.d}, {fed.n_chunks} chunks; expected {FEDLLM_D}, "
+          f"{FEDLLM_CHUNKS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = fed.carry0()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    keys = round_keys(1 + FEDLLM_ROUNDS, 0, device=device)
+
+    # (a) one warm-up round, then the timed rounds through run_segment
+    carry, warm = fed.run_segment({}, keys[:1], None, carry, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"ef_sparsify": FEDLLM_CHUNKS, "ota_project": FEDLLM_CHUNKS,
+            "ota_project_t": 0, "amp_fused": FEDLLM_CHUNKS}
+    total = {k: 0 for k in KERNELS}
+    ms, losses, per_round = [], [float(warm["loss"][0])], []
+    for t in range(1, 1 + FEDLLM_ROUNDS):
+        ops.reset_launches()
+        (carry, out), t_ms = _events_ms(lambda: fed.run_segment(
+            {}, keys[t:t + 1], None, carry, t))
+        launches = ops.launch_counts()
+        check(launches == want, f"fedllm round {t}: launches {launches}, "
+              f"expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        ms.append(t_ms)
+        losses.append(float(out["loss"][0]))
+        per_round.append(launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"fedllm: losses {losses}")
+    mets = {k: float(v[0]) for k, v in out["metrics"].items()}
+    check(all(map(math.isfinite, mets.values())), f"fedllm: metrics {mets}")
+
+    # the split of one more round into its pieces, by CUDA events
+    t = 1 + FEDLLM_ROUNDS
+    key = round_keys(t + 1, 0, device=device)[t]
+    (gflat, loss), grads_ms = _events_ms(lambda: fed._grads(carry[0], key))
+    gch = gflat.view(fed.m, fed.n_chunks, fed.chunk_len).transpose(0, 1)
+    (ghats, _, _), stream_ms = _events_ms(lambda: fedllm.stream_round(
+        fed.scheme, gch, carry[2], t, key, fed.ctx))
+    ghat = ghats.reshape(fed.d_pad)[:fed.d]
+    _, adam_ms = _events_ms(lambda: fed.opt.apply(
+        carry[0], fed.unravel(ghat), carry[1]))
+    del ghats, ghat
+
+    # (b) the first chunks on the same gradients: bitwise the plain run
+    # and the per-chunk round_simulated loop on the card
+    n = FEDLLM_PLAIN_CHUNKS
+    plain = get_scheme(dataclasses.replace(ota, use_kernel=False),
+                       fed.chunk_len, fed.m, device=device)
+    plain_ctx = dataclasses.replace(fed.ctx, use_kernel=False)
+    ops.reset_launches()
+    kern = fedllm.stream_round(fed.scheme, gch[:n], carry[2][:n], t, key,
+                               fed.ctx)
+    loop = fedllm.stream_round_ref(fed.scheme, gch[:n], carry[2][:n], t,
+                                   key, fed.ctx)
+    check(ops.launch_counts()["amp_fused"] == 2 * n,
+          "fedllm (b): the kernel runs did not launch amp_fused per chunk")
+    ops.reset_launches()
+    (ref_out), plain_ms = _events_ms(lambda: fedllm.stream_round(
+        plain, gch[:n], carry[2][:n], t, key, plain_ctx))
+    check(sum(ops.launch_counts().values()) == 0,
+          "fedllm (b): the plain run launched a kernel")
+    for name, other in (("use_kernel=False", ref_out),
+                        ("stream_round_ref", loop)):
+        check(torch.equal(kern[0], other[0])
+              and torch.equal(kern[1], other[1])
+              and all(torch.equal(kern[2][k], other[2][k])
+                      for k in kern[2]),
+              f"fedllm (b): the first {n} chunks differ from {name}")
+    del kern, loop, ref_out
+
+    # (c) the default chunk size over its first chunks
+    fed14 = fedllm.CompiledFedLLM(arch, train_cfg, ota,
+                                  chunk_size=FEDLLM_DEFAULT_CHUNK, **kw)
+    check(fed14.n_chunks == FEDLLM_DEFAULT_CHUNKS,
+          f"fedllm (c): {fed14.n_chunks} chunks")
+    nc, L = FEDLLM_TIMED_CHUNKS, fed14.chunk_len
+    gch14 = gflat[:, :nc * L].reshape(fed.m, nc, L).transpose(0, 1)
+    deltas14 = torch.zeros((nc, fed.m, L), device=device)
+    fedllm.stream_round(fed14.scheme, gch14[:2], deltas14[:2], 0, key,
+                        fed14.ctx)
+    ops.reset_launches()
+    (g14, _, _), c_ms = _events_ms(lambda: fedllm.stream_round(
+        fed14.scheme, gch14, deltas14, 0, key, fed14.ctx))
+    launches14 = ops.launch_counts()
+    check(launches14["amp_fused"] == nc and launches14["ef_sparsify"] == nc
+          and launches14["ota_project"] == nc,
+          f"fedllm (c): launches {launches14} over {nc} chunks")
+    check(bool(torch.isfinite(g14).all()), "fedllm (c): non-finite estimate")
+    del gflat, gch, gch14, g14
+    torch.cuda.empty_cache()
+    return dict(
+        phase="fedllm", arch=FEDLLM_ARCH, d=fed.d, d_pad=fed.d_pad,
+        m=fed.m, batch=FEDLLM_BATCH, seq_len=FEDLLM_SEQ,
+        chunk_size=FEDLLM_CHUNK, n_chunks=fed.n_chunks,
+        blocks_per_chunk=fed.scheme.projector.n_blocks,
+        config=dict(projection=ota.projection, block_size=ota.block_size,
+                    s_frac=ota.s_frac, k_frac=ota.k_frac,
+                    rademacher=ota.rademacher, use_kernel=ota.use_kernel,
+                    state_dtype=ota.state_dtype,
+                    compute_dtype=train_cfg.compute_dtype,
+                    remat=train_cfg.remat, warmup_steps=train_cfg.warmup_steps),
+        init_s=init_s, rounds=FEDLLM_ROUNDS, ms_per_round=ms,
+        ms_per_round_median=statistics.median(ms),
+        round_split_ms=dict(grads=grads_ms, stream=stream_ms, adam=adam_ms),
+        simulated_round_ms=slice_line["round_ms"],
+        peak_allocated_gb=peak / 1e9, losses=losses, final_metrics=mets,
+        launches=total, launches_per_round=per_round,
+        first_chunks_vs_plain="bitwise", first_chunks_vs_ref="bitwise",
+        plain_chunks=n, plain_ms_for_chunks=plain_ms,
+        default_chunk=dict(chunk_size=FEDLLM_DEFAULT_CHUNK, chunks_timed=nc,
+                           ms=c_ms, ms_per_chunk=c_ms / nc,
+                           n_chunks=fed14.n_chunks,
+                           projected_round_ms=c_ms / nc * fed14.n_chunks,
+                           launches=launches14))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2139,13 +2415,15 @@ def main() -> int:
         check_amp_fused(1, c, s, cfg.amp_iters, device, gen)]
     offsets = check_amp_fused_offsets(c, s, cfg.amp_iters,
                                       range(1, SHARDED_M), device, gen)
+    streamed = check_streamed_shapes(device, gen)
     for rec in [*main_checks.values(), *extra, *cohort, points,
                 *sharded_shapes]:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     emit(dict(phase="kernel_checks", main_path=list(main_checks.values()),
               other_shapes=extra, cohort_widths=cohort,
               point_axis=[points, point_rows], nonfinite=nonfinite,
-              sharded_shapes=[*sharded_shapes, offsets], not_ported=[]))
+              sharded_shapes=[*sharded_shapes, offsets],
+              streamed_shapes=streamed, not_ported=[]))
 
     data, sl = run_slice(device)
     emit(sl)
@@ -2165,12 +2443,14 @@ def main() -> int:
     emit(po)
     sd = run_sharded_phase(data, cfg, device)
     emit(sd)
+    fl = run_fedllm_phase(device, sl)
+    emit(fl)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],
              "channel": ch["launches"], "robust": rb["launches"],
              "local": lo["launches"], "population": po["launches"],
-             "sharded": sd["launches"]}
+             "sharded": sd["launches"], "fedllm": fl["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -2196,6 +2476,12 @@ def main() -> int:
                     "host_us", "plain_ms", "bound", "bound_share",
                     "g1_launches_graph_ms", "max_active_clusters",
                     "clusters_launched", "graph_ms_by_points")}
+        if name != "ota_project_t":
+            kernels[-1]["streamed_shapes"] = [
+                {k: rec[k] for k in ("shape", "kernel_ms", "graph_device_ms",
+                                     "plain_ms", "library_ms", "bound",
+                                     "bound_share", "max_abs_err")}
+                for rec in streamed if rec["kernel"] == name]
         if name in ("ota_project", "amp_fused"):
             one = sharded_shapes[0 if name == "ota_project" else 1]
             kernels[-1]["sharded_rank_shape"] = {

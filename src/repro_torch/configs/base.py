@@ -1,11 +1,14 @@
 """Config dataclasses of the port: its own copy of the reference's.
 
-The port imports nothing of the JAX package, so the dataclasses it needs
-from ``repro/configs/base.py`` are copied here field for field, defaults
-included: :class:`OTAConfig`, :class:`ArchConfig` (with the block configs
-it refers to), :func:`get_config`, :func:`ota_overrides` and
-:func:`approx_param_count`.  Only the paper's own model, ``mnist_mlp``, is
-ported; the zoo architectures raise ``NotImplementedError``.
+The port imports nothing of the JAX package, so ``repro/configs/base.py``
+is copied here field for field, defaults included: :class:`OTAConfig`,
+:class:`ArchConfig` (with the block configs it refers to),
+:class:`TrainConfig`, :class:`ShapeConfig`, ``INPUT_SHAPES``,
+:func:`get_config`, :func:`ota_overrides`, :func:`approx_param_count` and
+:func:`active_param_count`.  Every architecture of ``ARCH_IDS`` has its
+config module in this package, copied as data; the models of
+:mod:`repro_torch.models` run the attention families and raise
+``NotImplementedError`` for the MoE, Mamba2, RWKV6 and hybrid blocks.
 """
 from __future__ import annotations
 
@@ -265,6 +268,39 @@ class OTAConfig:
 # Architecture registry
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Train / shape configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adam"        # sgd | momentum | adam
+    lr: float = 1e-3
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = (
     "zamba2_7b",
     "mistral_large_123b",
@@ -283,8 +319,6 @@ def get_config(arch: str) -> ArchConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS and arch != "mnist_mlp":
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + ('mnist_mlp',)}")
-    if arch != "mnist_mlp":
-        raise NotImplementedError(f"arch {arch!r} is not ported yet")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 
@@ -337,3 +371,14 @@ def approx_param_count(cfg: ArchConfig) -> int:
         total += e.n_layers * (4 * e.d_model * e.d_model + 2 * e.d_model * e.d_ff)
         total += cfg.n_layers * (4 * cfg.d_model * cfg.d_model)  # cross-attn
     return int(total)
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Active (per-token) params — MoE counts only top_k experts."""
+    if cfg.moe is None:
+        return approx_param_count(cfg)
+    full = approx_param_count(cfg)
+    m = cfg.moe
+    dead = (m.num_experts - m.top_k) * 3 * cfg.d_model * m.d_expert
+    n_moe = sum(1 for k in cfg.blocks() if k == MOE)
+    return int(full - n_moe * dead)

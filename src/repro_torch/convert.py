@@ -9,14 +9,17 @@ Adam step count stays int32).
 
 The flat gradient layout follows ``jax.flatten_util.ravel_pytree``, which
 orders a dict's leaves by sorted key: for ``{"w": (784, 10), "b": (10,)}``
-the flat vector is ``[b (10), w (7840) row-major]``.  Which entries land in
-which projection block, and so every parity case, depends on that order,
-so :func:`ravel` and :func:`unravel` are the port's only flatteners.
+the flat vector is ``[b (10), w (7840) row-major]``, and a nested dict
+sorts its keys at every level (a zoo model's ``blocks`` < ``embed`` <
+``final_norm`` < ``lm_head``, each layer leaf stacked ``(n_layers,
+...)``).  Which entries land in which projection block, and so every
+parity case, depends on that order, so :func:`ravel` and :func:`unravel`
+are the port's only flatteners.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import List
 
 import numpy as np
 import torch
@@ -47,31 +50,56 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def ravel(params: Dict[str, torch.Tensor], batch_dims: int = 0) -> torch.Tensor:
-    """Flatten a dict of tensors in ``ravel_pytree`` order (sorted keys).
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a tree of dicts in ``jax.tree.leaves`` order: a dict's
+    keys sorted at every level, so ``{"blocks": {...}, "embed": ...}``
+    gives every leaf under ``blocks`` (in its own sorted order) first."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts, the other trees' matching
+    leaves as further arguments; the keys in ``tree``'s order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def ravel(params, batch_dims: int = 0) -> torch.Tensor:
+    """Flatten a tree of dicts of tensors in ``ravel_pytree`` order.
 
     With ``batch_dims=1`` every leaf carries a leading device axis that is
     kept: ``{"b": (M, 10), "w": (M, 784, 10)}`` -> ``(M, 7850)``.
     """
-    leaves = [params[k] for k in sorted(params)]
+    leaves = tree_leaves(params)
     lead = leaves[0].shape[:batch_dims]
     return torch.cat([v.reshape(*lead, -1) for v in leaves], dim=batch_dims)
 
 
-def unravel(flat: torch.Tensor, template: Dict[str, torch.Tensor],
-            batch_dims: int = 0) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`ravel` for a dict shaped like ``template``.
+def unravel(flat: torch.Tensor, template, batch_dims: int = 0):
+    """Inverse of :func:`ravel` for a tree of dicts shaped like
+    ``template`` (whose leaves need only a ``shape``): views into ``flat``.
 
     With ``batch_dims=1`` ``flat`` and every leaf of ``template`` carry a
     leading axis that is kept: ``(G, 7850)`` -> ``{"b": (G, 10), "w": (G,
     784, 10)}``.
     """
-    out, off = {}, 0
-    for k in sorted(template):
-        shape = template[k].shape
+    off = 0
+
+    def build(node):
+        nonlocal off
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        shape = tuple(node.shape)
         n = math.prod(shape[batch_dims:])
-        out[k] = flat[..., off:off + n].reshape(shape)
+        out = flat[..., off:off + n].reshape(shape)
         off += n
+        return out
+
+    out = build(template)
     if off != flat.shape[-1]:
         raise ValueError(f"flat vector has {flat.shape[-1]} entries, the "
                          f"template {off}")

@@ -296,19 +296,19 @@ def apply_overrides(scheme: Scheme, localwork: LocalWork,
 
 
 def _stack_outs(outs: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Per-round output dicts -> one dict of (rounds,) device tensors."""
-    return {"acc": torch.stack([o["acc"] for o in outs]),
-            "loss": torch.stack([o["loss"] for o in outs]),
-            "metrics": {k: torch.stack([o["metrics"][k] for o in outs])
-                        for k in outs[0]["metrics"]}}
+    """Per-round output dicts -> one dict of (rounds,) device tensors, key
+    for key (any runner's outs: the engine's, the streamed LLM round's)."""
+    return {k: (_stack_outs([o[k] for o in outs]) if isinstance(v, dict)
+                else torch.stack([o[k] for o in outs]))
+            for k, v in outs[0].items()}
 
 
 def _concat_outs(chunks: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Concatenate per-segment outputs along the round axis."""
-    return {"acc": torch.cat([c["acc"] for c in chunks]),
-            "loss": torch.cat([c["loss"] for c in chunks]),
-            "metrics": {k: torch.cat([c["metrics"][k] for c in chunks])
-                        for k in chunks[0]["metrics"]}}
+    """Concatenate per-segment outputs along the round axis, key for key
+    (any runner's outs: the engine's, the streamed LLM round's)."""
+    return {k: (_concat_outs([c[k] for c in chunks]) if isinstance(v, dict)
+                else torch.cat([c[k] for c in chunks]))
+            for k, v in chunks[0].items()}
 
 
 class CompiledExperiment:

@@ -16,6 +16,7 @@ Entry distributions:
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -90,6 +91,39 @@ def block_matrix_ref(seed, block, s_block: int, c: int,
     return z * scale
 
 
+#: the plain products on the CPU keep a few small A's, in float64 as
+#: ``contract`` takes them, keyed by (seed, shape, entries): one A serves
+#: every call (a streamed round's chunks share theirs), where hashing it
+#: anew cost most of a plain decode's time.  On the card the plain
+#: versions stay whole (hash and product), as the kernels are timed
+#: against them
+_PLAIN_A: dict = {}
+_PLAIN_A_LOCK = threading.Lock()
+_PLAIN_A_ENTRIES = 8
+_PLAIN_A_MAX_BYTES = 64 << 20
+
+
+def plain_blocks(seed, n_blocks: int, s_block: int, c: int,
+                 rademacher: bool, device) -> torch.Tensor:
+    """float64 A of blocks ``0 .. n_blocks - 1``: on the CPU made once and
+    kept where it takes at most 64 MB and ``seed`` is a python int, made
+    anew otherwise (on the card, a seed held in a tensor, a large A)."""
+    ids = torch.arange(n_blocks, dtype=torch.int64, device=device)
+    if (ids.device.type != "cpu" or isinstance(seed, torch.Tensor)
+            or n_blocks * s_block * c * 8 > _PLAIN_A_MAX_BYTES):
+        return block_matrix_ref(seed, ids, s_block, c, rademacher).double()
+    key = (int(seed) & MASK32, n_blocks, s_block, c, bool(rademacher))
+    with _PLAIN_A_LOCK:     # rank threads share the store
+        A = _PLAIN_A.get(key)
+    if A is None:
+        A = block_matrix_ref(seed, ids, s_block, c, rademacher).double()
+        with _PLAIN_A_LOCK:
+            while len(_PLAIN_A) >= _PLAIN_A_ENTRIES:
+                _PLAIN_A.pop(next(iter(_PLAIN_A)))
+            _PLAIN_A[key] = A
+    return A
+
+
 def contract(eq: str, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``einsum(eq, A, v)`` with the products summed in float64.
 
@@ -106,8 +140,7 @@ def ota_project_ref(x: torch.Tensor, seed, s_block: int,
                     rademacher: bool = True) -> torch.Tensor:
     """Forward projection. x: (..., n_blocks, c) -> (..., n_blocks, s_block)."""
     n_blocks, c = x.shape[-2:]
-    ids = torch.arange(n_blocks, dtype=torch.int64, device=x.device)
-    A = block_matrix_ref(seed, ids, s_block, c, rademacher)
+    A = plain_blocks(seed, n_blocks, s_block, c, rademacher, x.device)
     return contract("bsc,...bc->...bs", A, x)
 
 
@@ -115,8 +148,7 @@ def ota_project_t_ref(y: torch.Tensor, seed, c: int,
                       rademacher: bool = True) -> torch.Tensor:
     """Transpose projection. y: (..., n_blocks, s_block) -> (..., n_blocks, c)."""
     n_blocks, s_block = y.shape[-2:]
-    ids = torch.arange(n_blocks, dtype=torch.int64, device=y.device)
-    A = block_matrix_ref(seed, ids, s_block, c, rademacher)
+    A = plain_blocks(seed, n_blocks, s_block, c, rademacher, y.device)
     return contract("bsc,...bs->...bc", A, y)
 
 

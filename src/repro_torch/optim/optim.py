@@ -3,7 +3,8 @@
 The port of the reference's ``repro/optim/optim.py``.  Adam is the paper's
 §VI choice: the PS applies it to the reconstructed average gradient.
 Parameters, gradients and optimizer moments are dicts of tensors with the
-same keys; ``apply`` returns new dicts and leaves its inputs untouched.
+same keys, nested or flat (a zoo model's params nest); ``apply`` returns
+new dicts and leaves its inputs untouched.
 
 A sweep's grid gives every leaf a leading point axis.  The step count is
 then shared by all points (0-dim), or one per point (``(G,)``) where a
@@ -13,13 +14,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.device import div_f32
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
 
 
 def _per_leaf(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -45,9 +47,9 @@ class Optimizer:
 
     # ------------------------------------------------------------------ state
     def init(self, params: Params) -> dict:
-        device = next(iter(params.values())).device
+        device = tree_leaves(params)[0].device
         count = torch.zeros((), dtype=torch.int32, device=device)
-        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
+        zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
         if self.name == "adam":
             return {"m": zeros(), "v": zeros(), "count": count}
         if self.name == "momentum":
@@ -73,26 +75,27 @@ class Optimizer:
     def apply(self, params: Params, grads: Params,
               state: dict) -> Tuple[Params, dict]:
         steps, state = self.steps(params, grads, state)
-        return {k: p - steps[k] for k, p in params.items()}, state
+        return tree_map(torch.sub, params, steps), state
 
     def steps(self, params: Params, grads: Params,
               state: dict) -> Tuple[Params, dict]:
         """The step each parameter takes, ``apply`` being ``params -
         steps``, and the new state."""
         if self.grad_clip > 0:
-            sq = sum((g.float() ** 2).sum() for g in grads.values())
+            sq = sum((g.float() ** 2).sum() for g in tree_leaves(grads))
             scale = torch.clamp(self.grad_clip / torch.clamp(
                 torch.sqrt(sq), min=1e-9), max=1.0)
-            grads = {k: g * scale for k, g in grads.items()}
+            grads = tree_map(lambda g: g * scale, grads)
         count = state["count"] + 1
         lr = self.lr_at(state["count"])
         wd = self.weight_decay
 
         if self.name == "adam":
             b1, b2 = self.b1, self.b2
-            m = {k: b1 * state["m"][k] + (1 - b1) * g for k, g in grads.items()}
-            v = {k: b2 * state["v"][k] + (1 - b2) * g * g
-                 for k, g in grads.items()}
+            m = tree_map(lambda g, m_: b1 * m_ + (1 - b1) * g, grads,
+                         state["m"])
+            v = tree_map(lambda g, v_: b2 * v_ + (1 - b2) * g * g, grads,
+                         state["v"])
             c = count.to(torch.float32)
             mhat_s = 1.0 / (1 - b1 ** c)
             vhat_s = 1.0 / (1 - b2 ** c)
@@ -102,15 +105,29 @@ class Optimizer:
                     torch.sqrt(v_ * _per_leaf(vhat_s, p)) + self.eps)
                 return _per_leaf(lr, p) * (step_ + wd * p)
 
-            steps = {k: upd(p, m[k], v[k]) for k, p in params.items()}
+            steps = tree_map(upd, params, m, v)
             return steps, {"m": m, "v": v, "count": count}
         if self.name == "momentum":
-            m = {k: self.momentum * state["m"][k] + g for k, g in grads.items()}
-            steps = {k: _per_leaf(lr, p) * (m[k] + wd * p)
-                     for k, p in params.items()}
+            m = tree_map(lambda g, m_: self.momentum * m_ + g, grads,
+                         state["m"])
+            steps = tree_map(lambda p, m_: _per_leaf(lr, p) * (m_ + wd * p),
+                             params, m)
             return steps, {"m": m, "count": count}
         if self.name == "sgd":
-            steps = {k: _per_leaf(lr, p) * (grads[k] + wd * p)
-                     for k, p in params.items()}
+            steps = tree_map(lambda p, g: _per_leaf(lr, p) * (g + wd * p),
+                             params, grads)
             return steps, {"count": count}
         raise ValueError(self.name)
+
+
+def make_optimizer(train_cfg) -> Optimizer:
+    """The optimizer a :class:`~repro_torch.configs.base.TrainConfig`
+    describes."""
+    return Optimizer(
+        name=train_cfg.optimizer,
+        lr=train_cfg.lr,
+        weight_decay=train_cfg.weight_decay,
+        warmup_steps=train_cfg.warmup_steps,
+        total_steps=train_cfg.total_steps,
+        grad_clip=train_cfg.grad_clip,
+    )

@@ -470,8 +470,17 @@ def normal_over_sqrt2(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     return erf_inv(uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0))
 
 
+def _shape_only(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """The draw of a key on torch's ``meta`` device: its shape and dtype
+    only (``abstract_params`` sizes a model without drawing it)."""
+    return torch.empty(tuple(key.shape[:-1]) + _shape(shape),
+                       dtype=torch.float32, device="meta")
+
+
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """float32 ``jax.random.normal``."""
+    if key.device.type == "meta":
+        return _shape_only(key, shape)
     return _SQRT2_F32 * normal_over_sqrt2(key, shape)
 
 
@@ -511,3 +520,48 @@ def exponential(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """float32 ``jax.random.exponential``: ``-log1p(-u)`` for ``u =
     uniform(key, shape)``."""
     return -log1p(-uniform(key, shape))
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint`` on ``[minval, maxval)``, bit for bit.
+
+    jax splits the key in two, draws 32 random bits from each and reduces
+    the pair by the span with a modular multiplier, in uint32 arithmetic
+    that wraps: ``((hi % span) * mult + lo % span) % span`` with ``mult =
+    (2**16 % span)**2 % span``, each product taken modulo 2**32.
+    Integers only, so it is exact on every device.  ``minval`` and
+    ``maxval`` are python ints within int32; ``maxval <= minval`` gives
+    ``minval``.
+    """
+    shape = _shape(shape)
+    k1, k2 = split(key, 2).unbind(-2)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = ((((1 << 16) % span) ** 2) & MASK32) % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    off = (off & MASK32) % span
+    out = (minval + off) & MASK32
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: Shape) -> torch.Tensor:
+    """float32 ``jax.random.truncated_normal(key, lower, upper, shape)``.
+
+    ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on ``[erf(lower / sqrt(2)),
+    erf(upper / sqrt(2)))``, clipped to the open interval ``(lower,
+    upper)``.  The two bounds of ``u`` are float32 scalars; XLA's ``erf``
+    gives the correctly rounded value at ``±2 / sqrt(2)``, the bounds the
+    models draw with, and the port takes them from a float64 ``erf``.
+    """
+    if key.device.type == "meta":
+        return _shape_only(key, shape)
+    sqrt2 = np.float32(np.sqrt(2))
+    a = np.float32(math.erf(float(np.float32(lower) / sqrt2)))
+    b = np.float32(math.erf(float(np.float32(upper) / sqrt2)))
+    u = uniform(key, shape, float(a), float(b))
+    out = _SQRT2_F32 * erf_inv(u)
+    lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
+    hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
+    return torch.clamp(out, lo, hi)

@@ -1350,3 +1350,77 @@ def test_round_sharded_kernels_bitwise_plain_on_card(dev):
                                        "ota_project_t": 0, "amp_fused": n}
     for a, b in zip(out[True], out[False]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the streamed federated LLM round: the kernels at a chunk's shapes, and a
+# reduced model's round through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_blocks", [4, 1024])
+def test_kernels_at_streamed_chunk_shapes_bitwise(dev, n_blocks):
+    """A 2**14 and a 2**22 chunk of ``ota_overrides`` (c 4096, s 1024) for
+    4 devices: ef_sparsify on 4 x chunk, ota_project on 4 x n_blocks x
+    4096 -> 1024 and amp_fused on n_blocks blocks, each bitwise its plain
+    version (the projection's plain products make A eight blocks at a
+    time, as the scheme's plain path does on the card)."""
+    from repro_torch.core.amp import amp_blocked_core
+    from repro_torch.core.compression import sampled_topk_threshold
+    from repro_torch.core.projection import BlockedProjector
+    c, s, m = 4096, 1024, 4
+    gen = _gen(dev, n_blocks)
+    g = torch.randn(m, n_blocks * c, generator=gen, device=dev) * 0.01
+    d = torch.randn(m, n_blocks * c, generator=gen, device=dev) * 0.003
+    tau = sampled_topk_threshold(g + d, n_blocks * s // 2)
+    before = (ef_sparsify.launches, ota_project.launches, amp_fused.launches)
+    sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
+    assert all(torch.equal(a, b) for a, b in
+               zip((sp, nd), ref.ef_sparsify_ref(g, d, tau)))
+    proj = BlockedProjector(d=n_blocks * c, block_size=c, s_block=s, seed=0)
+    xb = sp.reshape(m, n_blocks, c)
+    y = ota_project.ota_project(xb, 0, s)
+    assert torch.equal(y, proj.project_blocks(xb))
+    yb = y.sum(0) + 0.01 * torch.randn(n_blocks, s, generator=gen,
+                                       device=dev)
+    got = amp_fused.amp_decode_fused(yb, 0, c, iters=20)
+    assert torch.equal(got, amp_blocked_core(yb, 0, c, 20))
+    assert (ef_sparsify.launches, ota_project.launches,
+            amp_fused.launches) == tuple(b + 1 for b in before)
+
+
+def test_fedllm_round_on_card_bitwise_plain(dev):
+    """A reduced smollm ``CompiledFedLLM`` round (Rademacher blocks of 256,
+    25 chunks): through the kernels bitwise its use_kernel=False run on
+    the card, with exactly one launch of each main-path kernel per chunk
+    and none in the plain run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OTAConfig, TrainConfig
+    from repro_torch.convert import tree_leaves
+    from repro_torch.experiments.engine import round_keys
+    from repro_torch.train.fedllm import CompiledFedLLM
+    out = {}
+    for uk in (True, False):
+        fed = CompiledFedLLM(
+            get_config("smollm_360m").reduced(),
+            TrainConfig(compute_dtype="float32", warmup_steps=0),
+            OTAConfig(projection="blocked", s_frac=0.25, k_frac=0.5,
+                      block_size=256, rademacher=True, use_kernel=uk),
+            m=3, batch=2, seq_len=8, device=dev)
+        assert fed.n_chunks == 25
+        ops.reset_launches()
+        carry, outs = fed.run_segment({}, round_keys(1, 0, device=dev), None,
+                                      fed.carry0(), 0)
+        torch.cuda.synchronize()
+        n = fed.n_chunks if uk else 0
+        assert ops.launch_counts() == {"ef_sparsify": n, "ota_project": n,
+                                       "ota_project_t": 0, "amp_fused": n}
+        out[uk] = (carry, outs)
+    (ck, ok), (cp, op) = out[True], out[False]
+    assert torch.equal(ck[2], cp[2])
+    for a, b in zip(tree_leaves(ck[0]), tree_leaves(cp[0])):
+        assert torch.equal(a, b)
+    assert torch.equal(ok["loss"], op["loss"])
+    for k in ok["metrics"]:
+        assert torch.equal(ok["metrics"][k], op["metrics"][k])
+    assert torch.isfinite(ok["loss"]).all()

@@ -1,0 +1,325 @@
+"""The streamed federated LLM round (``repro_torch.train.fedllm``) against the
+JAX package's ``repro.train.fedllm`` on the CPU.
+
+The configuration is the reference's own test configuration
+(``tests/test_fedllm.py::_fed``): ``smollm_360m.reduced()``, a_dsgd on the
+blocked projector with c = 256, s_c = 64 and Gaussian entries, M = 3,
+batches of 2 x 8 tokens, float32 compute, ``chunk_size = 1 << 14`` (25
+chunks of 16 384 over d = 393 856).  The reference runs under ``jit``, as
+its tests run it; it is computed once for the module.
+
+Bars, each measured on this configuration:
+
+* the round from the reference's gradients: the error state bitwise, the
+  frames' metrics within rtol 1e-5, ĝ within the AMP bar (rtol 1e-4, atol
+  1e-5) but for a stated count of entries where the decode's support
+  differs: one chunk, at most 64 of the 409 600 entries (measured 52),
+  each within 5e-3 absolute (measured 3.7e-3; ĝ reaches 1.2).  The same y
+  decodes to those same entries in both packages' decodes alike: the port's
+  plain AMP sums in float64 and rounds once, the reference's in float32,
+  and the soft threshold turns that ulp into another support
+  (ROADMAP queue 3);
+* the pipelined stream bitwise its per-chunk ``round_simulated`` loop and
+  the all-ones masked stream; ``use_kernel=True`` bitwise ``False`` on the
+  CPU (both take the plain versions);
+* the per-device gradients within rtol 1e-4 / atol 1e-6, the synthetic
+  batches bitwise;
+* a 3-round ``run`` (Adam at lr 1e-3, no warmup): losses within 1e-5
+  relative, the mean metrics within rtol 1e-5 (measured 1e-7 and 1.3e-6),
+  the final params within 1e-4 absolute but for at most 40 entries (0.01 %;
+  measured 12 of 393 856, max 1.3e-3): Adam moves an entry by up to lr a
+  round whatever the size of its ĝ, so a flipped ĝ entry moves its param
+  by up to lr, and those stay within lr x rounds = 3e-3;
+* a resume bitwise the uninterrupted run; a resume from a checkpoint the
+  JAX package wrote within the run's bars.
+"""
+import dataclasses
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import OTAConfig as JOTAConfig
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.experiments.engine import round_keys as jround_keys
+from repro.experiments.engine import run_checkpointed as jrun_checkpointed
+from repro.train import fedllm as jfedllm
+from repro_torch.configs import get_config
+from repro_torch.configs.base import OTAConfig, TrainConfig
+from repro_torch.convert import to_torch, tree_leaves
+from repro_torch.experiments.engine import round_keys, run_checkpointed
+from repro_torch.train import fedllm
+from repro_torch.train.checkpoint import load_checkpoint
+
+OTA = dict(scheme="a_dsgd", projection="blocked", s_frac=0.25, k_frac=0.5,
+           block_size=256)
+FED = dict(m=3, batch=2, seq_len=8, chunk_size=1 << 14, seed=0)
+ROUNDS = 3
+
+AMP_RTOL, AMP_ATOL = 1e-4, 1e-5
+#: entries of the round's ĝ outside the AMP bar (support flips; measured 52)
+FLIP_COUNT, FLIP_ATOL = 64, 5e-3
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+LOSS_RTOL, METRIC_RTOL, PARAM_ATOL = 1e-5, 1e-5, 1e-4
+#: params a flipped ĝ entry moved (measured 12), within Adam's lr x rounds
+PARAM_FLIPS, PARAM_FLIP_ATOL = 40, 1e-3 * 3
+
+
+def _jfed(arch="smollm_360m", **ota):
+    return jfedllm.CompiledFedLLM(
+        jget_config(arch).reduced(), JTrainConfig(compute_dtype="float32",
+                                                  warmup_steps=0),
+        JOTAConfig(**dict(OTA, **ota)), **FED)
+
+
+def _tfed(arch="smollm_360m", **ota):
+    return fedllm.CompiledFedLLM(
+        get_config(arch).reduced(), TrainConfig(compute_dtype="float32",
+                                                warmup_steps=0),
+        OTAConfig(**dict(OTA, **ota)), device="cpu", **FED)
+
+
+def _key(key):
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
+
+
+def _assert_run_close(got, want):
+    np.testing.assert_allclose(got["loss"].numpy(), np.asarray(want["loss"]),
+                               rtol=LOSS_RTOL)
+    assert set(got["metrics"]) == set(want["metrics"])
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k].numpy(), np.asarray(v),
+                                   rtol=METRIC_RTOL)
+    flips = 0
+    for a, b in zip(tree_leaves(got["params"]),
+                    jax.tree.leaves(want["params"])):
+        diff = np.abs(a.numpy() - np.asarray(b))
+        flips += int((diff > PARAM_ATOL).sum())
+        assert diff.max() <= PARAM_FLIP_ATOL
+    assert flips <= PARAM_FLIPS, flips
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module on one intra-op thread, its module-scoped references
+    too (thousands of small ops, which a parallel run's busy cores slow
+    with a pool of threads to wake)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's round-0 gradients, streamed round and 3-round run,
+    and a checkpoint its engine wrote after round 2."""
+    fed = _jfed()
+    key = jround_keys(1, 0)[0]
+    carry = fed.carry0()
+    g, loss = jax.jit(fed._grads)(carry[0], key)
+    gch = np.asarray(g).reshape(fed.m, fed.n_chunks,
+                                fed.chunk_len).transpose(1, 0, 2)
+    stream = jax.device_get(jax.jit(lambda g, dl: jfedllm.stream_round(
+        fed.scheme, g, dl, 0, key, fed.ctx))(gch, carry[2]))
+    keys = jround_keys(ROUNDS, 0)
+    run = jax.device_get(fed.run(keys))
+    ckpt_dir = tempfile.mkdtemp()
+    assert jrun_checkpointed(fed, {}, keys, checkpoint_dir=ckpt_dir,
+                             checkpoint_every=2, stop_after_step=2) is None
+    return dict(fed=fed, key=key, params=jax.device_get(carry[0]),
+                grads=np.asarray(g), loss=float(loss),
+                gch=np.ascontiguousarray(gch), stream=stream, run=run,
+                ckpt_dir=ckpt_dir)
+
+
+@pytest.fixture(scope="module")
+def port():
+    return _tfed()
+
+
+def test_layout_equals_reference(ref, port):
+    fed = ref["fed"]
+    assert (port.d, port.chunk_len, port.n_chunks, port.d_pad) == \
+        (fed.d, fed.chunk_len, fed.n_chunks, fed.d_pad)
+    assert port.n_chunks == 25 and port.d == 393_856
+    assert port.scheme.k == fed.scheme.k
+    assert port.scheme.channel_dim() == fed.scheme.channel_dim()
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen2_vl_7b",
+                                  "whisper_base"])
+def test_device_batch_bitwise(arch):
+    """tokens by randint, and the vlm / audio stub embeddings as the
+    reference's ``jit`` draws them."""
+    jf, tf = _jfed(arch), _tfed(arch)
+    for i in range(2):
+        k = jax.random.fold_in(jax.random.PRNGKey(1000), i)
+        want = jax.jit(jf._device_batch)(k)
+        got = tf._device_batch(_key(k))
+        assert set(got) == set(want)
+        for name in want:
+            assert got[name].dtype == getattr(torch, str(want[name].dtype))
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          np.asarray(want[name]))
+
+
+def test_carry0_equals_reference(ref, port):
+    params, opt_state, deltas = port.carry0()
+    for a, b in zip(tree_leaves(params), jax.tree.leaves(ref["params"])):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert deltas.shape == (25, 3, 16384) and not deltas.any()
+    assert int(opt_state["count"]) == 0
+
+
+def test_grads_match_reference(ref, port):
+    g, loss = port._grads(to_torch(ref["params"], "cpu"), _key(ref["key"]))
+    assert g.shape == (port.m, port.d_pad)
+    assert not g[:, port.d:].any()
+    np.testing.assert_allclose(g.numpy(), ref["grads"], rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    np.testing.assert_allclose(float(loss), ref["loss"], rtol=LOSS_RTOL)
+
+
+def _stream(port, ref, fn=fedllm.stream_round, chunks=None):
+    gch = torch.from_numpy(ref["gch"][:chunks])
+    return fn(port.scheme, gch, torch.zeros(gch.shape), 0, _key(ref["key"]),
+              port.ctx)
+
+
+@pytest.fixture(scope="module")
+def stream(ref, port):
+    return _stream(port, ref)
+
+
+def test_stream_round_matches_reference(ref, stream):
+    ghats, deltas, mets = stream
+    wghat, wdeltas, wmets = ref["stream"]
+    np.testing.assert_array_equal(deltas.numpy(), np.asarray(wdeltas))
+    got, want = ghats.numpy(), np.asarray(wghat)
+    out = np.abs(got - want) > AMP_ATOL + AMP_RTOL * np.abs(want)
+    assert out.sum() <= FLIP_COUNT and out.any(axis=1).sum() <= 1, \
+        (out.sum(), np.nonzero(out.any(axis=1))[0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_ATOL)
+    assert set(mets) == set(wmets)
+    for k in wmets:
+        np.testing.assert_allclose(mets[k].numpy(), np.asarray(wmets[k]),
+                                   rtol=METRIC_RTOL)
+
+
+def test_stream_round_equals_its_reference_loop_and_masked_bitwise(ref,
+                                                                   port,
+                                                                   stream):
+    loop = _stream(port, ref, fedllm.stream_round_ref)
+    gch = torch.from_numpy(ref["gch"][:5])
+    masked = fedllm.stream_round_masked(
+        port.scheme, gch, torch.zeros(gch.shape), 0, _key(ref["key"]),
+        torch.ones(port.m), port.ctx)
+    for a, b in zip(stream[:2], loop[:2]):
+        assert torch.equal(a, b)
+    assert set(stream[2]) == set(loop[2])
+    for k in stream[2]:
+        assert torch.equal(stream[2][k], loop[2][k])
+    for a, b in zip(stream[:2], masked[:2]):
+        assert torch.equal(a[:5], b)
+    for k in stream[2]:
+        assert torch.equal(stream[2][k][:5], masked[2][k])
+
+
+def test_use_kernel_equals_plain_on_cpu(ref, port, stream):
+    kern = _tfed(use_kernel=True)
+    assert kern.ctx.use_kernel and kern.scheme.projector.use_kernel
+    got = _stream(kern, ref, chunks=3)
+    for a, b in zip(stream[:2], got[:2]):
+        assert torch.equal(a[:3], b)
+
+
+@pytest.fixture(scope="module")
+def port_run(port):
+    return port.run(round_keys(ROUNDS, 0, device="cpu"))
+
+
+def test_run_matches_reference(ref, port_run):
+    _assert_run_close(port_run, ref["run"])
+    # the model learns on its synthetic batches
+    loss = port_run["loss"].numpy()
+    assert np.isfinite(loss).all() and loss[-1] < loss[0]
+
+
+def test_checkpoint_resume_bitwise_and_ef_per_chunk(port, port_run,
+                                                    tmp_path):
+    """Interrupted after round 1 and after round 2, resumed to round 3:
+    bitwise the uninterrupted run.  EF is live in every full chunk after
+    a round (the tail chunk is mostly pad) and moves in the next."""
+    keys = round_keys(ROUNDS, 0, device="cpu")
+    kw = dict(checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    path = str(tmp_path / "engine_ckpt.npz")
+    assert run_checkpointed(port, {}, keys, stop_after_step=1, **kw) is None
+    carry1, t1 = load_checkpoint(path, device="cpu")
+    assert run_checkpointed(port, {}, keys, resume=True, stop_after_step=2,
+                            **kw) is None
+    carry2, t2 = load_checkpoint(path, device="cpu")
+    resumed = run_checkpointed(port, {}, keys, resume=True, **kw)
+    assert (t1, t2) == (1, 2)
+    d1, d2 = carry1["carry"][2], carry2["carry"][2]
+    assert d1.shape == (port.n_chunks, port.m, port.chunk_len)
+    assert (d1.abs().sum(dim=(1, 2))[:-1] > 0).all()
+    assert not torch.equal(d1, d2)
+    assert torch.equal(resumed["loss"], port_run["loss"])
+    for k, v in port_run["metrics"].items():
+        assert torch.equal(resumed["metrics"][k], v)
+    for a, b in zip(tree_leaves(resumed["params"]),
+                    tree_leaves(port_run["params"])):
+        assert torch.equal(a, b)
+
+
+def test_jax_written_checkpoint_resumes(ref, port):
+    """The reference's engine checkpointed the run after round 2; the port
+    loads its params, Adam state and (25, 3, 16384) error state in the
+    reference's leaf order and finishes the run within the run's bars."""
+    keys = round_keys(ROUNDS, 0, device="cpu")
+    out = run_checkpointed(port, {}, keys, checkpoint_dir=ref["ckpt_dir"],
+                           checkpoint_every=2, resume=True)
+    _assert_run_close(out, ref["run"])
+
+
+def test_overrides_reach_the_scheme(ref, port):
+    """``run_segment``'s overrides swap onto a copy of the scheme: a zero
+    power schedule silences every chunk's frame (alpha = 0)."""
+    sch = port.scheme.with_overrides(p_sched=torch.zeros_like(
+        port.scheme.p_sched))
+    gch = torch.from_numpy(ref["gch"][:2])
+    _, _, mets = fedllm.stream_round(sch, gch, torch.zeros(gch.shape), 0,
+                                     _key(ref["key"]), port.ctx)
+    assert not mets["alpha"].any() and not mets["p_t"].any()
+    assert port.scheme.p_sched.any()
+
+
+def test_non_attention_arch_raises():
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fedllm.CompiledFedLLM(get_config("rwkv6_3b").reduced(),
+                              TrainConfig(), OTAConfig(**OTA), device="cpu")
+
+
+def test_shapes_of_the_full_width_round():
+    """smollm-360m at its published widths with ``ota_overrides``: the
+    chunk counts of the card's streamed round, from shapes alone."""
+    from repro_torch.configs.base import ota_overrides
+    ota = dataclasses.replace(ota_overrides("smollm_360m"), use_kernel=True)
+    arch = get_config("smollm_360m")
+    for chunk, n in ((1 << 22, 87), (1 << 14, 22084)):
+        fed = fedllm.CompiledFedLLM(arch, TrainConfig(), ota, chunk_size=chunk,
+                                    device="cpu")
+        assert (fed.d, fed.n_chunks, fed.chunk_len) == (361_821_120, n, chunk)
+        assert fed.scheme.projector.n_blocks == chunk // 4096
+        assert fed.compute_dtype == torch.bfloat16 and fed.ctx.use_kernel
+    jfed = jfedllm.CompiledFedLLM(jget_config("smollm_360m"), JTrainConfig(),
+                                  dataclasses.replace(
+                                      JOTAConfig(**dataclasses.asdict(ota))),
+                                  chunk_size=1 << 22)
+    assert (jfed.d, jfed.n_chunks) == (361_821_120, 87)
+    assert jnp.dtype(jfed.compute_dtype) == jnp.bfloat16
