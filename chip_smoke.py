@@ -168,7 +168,22 @@ Phases, one JSON line each:
             ``stream_round_ref`` on the card; (c) the default chunk_size
             2**14: ``stream_round`` over the first 64 chunks, ms per chunk
             and that times 22 084 as the projected round;
-14. kernels the per-kernel record: route, source, the TPU kernel it
+14. benchmarks
+            the port's benchmark scripts (``repro_torch.benchmarks``): (a)
+            ``bench_kernels`` at its full sizes (64 x 1024 -> 256, 10 AMP
+            iterations; 256 x 4096 -> 1024, 20), every kernel path within
+            its bar of the plain path and one launch per call (its own
+            checks), the per-op ms of both paths, and each kernel's graph
+            ms, bound and share at those sizes; (b) ``bench_sweeps`` at its
+            default size, the looped runs equal to the batched grid; (c)
+            Fig. 2 at ``FULL=1`` (the paper's M = 25, B = 1000, T = 300,
+            dense projection) through ``python -m
+            repro_torch.benchmarks.run fig2``: the ten series' final
+            accuracies and ms per round, and the IID ordering ideal >=
+            a_dsgd >= d_dsgd beside the paper's claim; (d) the Theorem 1
+            rows.  (a) and (b) write ``BENCH_torch_kernels.json`` and
+            ``BENCH_torch_sweeps.json`` at the checkout's root;
+15. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
@@ -179,8 +194,8 @@ fedllm phase's shapes, each bitwise its plain version: ef_sparsify on 4 x
 chunk time with fewer repetitions: a call takes tens of ms).
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
-population, each run of sharded, fedllm's timed rounds) runs with every
-launch count set to 0 just before it and read just after.
+population, each run of sharded, fedllm's timed rounds, bench_kernels)
+runs with every launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -193,6 +208,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -252,7 +268,8 @@ PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "robust": ("ef_sparsify", "ota_project", "amp_fused"),
                 "local": ("ef_sparsify", "ota_project", "amp_fused"),
                 "population": ("ef_sparsify", "ota_project", "amp_fused"),
-                "sharded": ("ef_sparsify", "ota_project", "amp_fused")}
+                "sharded": ("ef_sparsify", "ota_project", "amp_fused"),
+                "benchmarks": ("ota_project", "ota_project_t", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
 #: point counts at which the point-axis amp_fused is also timed
@@ -2328,6 +2345,148 @@ def run_fedllm_phase(device, slice_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the benchmarks (repro_torch.benchmarks)
+# ---------------------------------------------------------------------------
+
+#: the paper's Fig. 2 claim (PAPER.md): A-DSGD converges faster than D-DSGD,
+#: below the error-free shared link
+FIG2_CLAIM = ("A-DSGD converges faster than D-DSGD (PAPER.md); both below "
+              "the error-free link: ideal >= a_dsgd >= d_dsgd")
+
+
+def free_device_memory() -> None:
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def bench_kernel_rows(device) -> list:
+    """Each bench_kernels op's kernel at the full sizes: its own device
+    time by CUDA-graph replay (10 calls captured, 3 replays), its bound and
+    the share of it, on the benchmark's own inputs."""
+    from repro_torch.benchmarks import bench_kernels
+
+    rows = []
+    for size, nb, c, s, iters in bench_kernels.SIZES_FULL:
+        x, yb = bench_kernels.inputs(nb, c, s, device)
+        calls = bench_kernels.op_calls(x, yb, c, s, iters, use_kernel=True)
+        entries = nb * s * c
+        proj_ops = entries * HASH_OPS + 2 * entries
+        bounds = {
+            "proj_fwd": bound(4 * (nb * c + nb * s), proj_ops),
+            "proj_adj": bound(4 * (nb * s + nb * c), proj_ops),
+            "amp_decode": bound(4 * (nb * s + nb * c),
+                                (2 * iters + 1) * 2 * entries
+                                + HASH_OPS * entries)}
+        for op, fn in calls.items():
+            g = graph_ms(fn, warmup=1, n=10, replays=3)
+            rows.append(dict(size=size, op=op,
+                             kernel=bench_kernels.KERNEL_OF[op],
+                             shape=[nb, c, s], iters=iters, graph_ms=g,
+                             bound_ms=bounds[op][0], bound_by=bounds[op][1],
+                             bound_share=bounds[op][0] / g))
+        del x, yb, calls
+        free_device_memory()
+    return rows
+
+
+def fig2_full(timeout: int = 600) -> dict:
+    """``python -m repro_torch.benchmarks.run fig2`` with ``FULL=1`` (the
+    paper's M = 25, B = 1000, 60 000 / 10 000, T = 300, dense projection),
+    as a user runs it: each series' final accuracy and ms per round, and the
+    IID ordering beside the paper's claim."""
+    env = dict(os.environ, FULL="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run",
+                          "fig2"], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"fig2 FULL exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    summary = lines[lines.index("name,us_per_call,derived") + 1:]
+    series = {}
+    for ln in summary:
+        name, us, acc = ln.split(",")
+        series[name[len("fig2_"):]] = dict(final_acc=float(acc),
+                                           ms_per_round=float(us) / 1e3)
+    rows = [ln for ln in lines if ln.startswith("fig2,")]
+    acc = {k: v["final_acc"] for k, v in series.items()}
+    check(len(series) == 10 and len(rows) == 10 * 31
+          and all(0.0 <= a <= 1.0 for a in acc.values()),
+          f"fig2 FULL: {len(series)} series, {len(rows)} rows, {acc}")
+    ordering = acc["ideal_iid"] >= acc["a_dsgd_iid"] >= acc["d_dsgd_iid"]
+    return dict(scale="FULL", seconds=seconds, series=series,
+                iid_ordering=dict(
+                    ideal=acc["ideal_iid"], a_dsgd=acc["a_dsgd_iid"],
+                    d_dsgd=acc["d_dsgd_iid"], holds=ordering,
+                    paper_claim=FIG2_CLAIM))
+
+
+def run_benchmarks_phase(device) -> dict:
+    """(a) bench_kernels at its full sizes, (b) bench_sweeps at its default
+    size, (c) Fig. 2 at FULL, (d) the Theorem 1 rows."""
+    from repro_torch.benchmarks import bench_kernels, bench_sweeps
+    from repro_torch.benchmarks import convergence_bound
+
+    free_device_memory()
+    # (a) the path: bench_kernels' own checks (each kernel within its bar
+    # of the plain path, one launch per call) and times
+    total = {}
+    want = len(bench_kernels.SIZES_FULL) * (
+        1 + bench_kernels.WARMUP + bench_kernels.REPS)
+    counted = launch_counter("benchmarks", total)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        kdoc, _ = counted(lambda: bench_kernels.main(device=device), want)
+    kernels_s = time.perf_counter() - t0
+    check(not kdoc["smoke"] and total["ef_sparsify"] == 0,
+          f"bench_kernels: smoke {kdoc['smoke']}, launches {total}")
+    times = {(e["size"], e["op"], e["path"]): e for e in kdoc["entries"]}
+    rows = bench_kernel_rows(device)
+    for r in rows:
+        plain = times[(r["size"], r["op"], "plain")]
+        kern = times[(r["size"], r["op"], "kernel")]
+        r.update(plain_ms=plain["us_per_call"] / 1e3,
+                 kernel_ms=kern["us_per_call"] / 1e3,
+                 max_abs_err=kern["max_abs_err"],
+                 launches_per_call=kern["launches"])
+        check(kern["launches"] == 1, f"bench_kernels {r['op']}: "
+              f"{kern['launches']} launches per call")
+
+    # (b) bench_sweeps: looped == batched, point for point
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sdoc = bench_sweeps.main(device=device)
+    sweeps_s = time.perf_counter() - t0
+    check(sdoc["max_final_acc_deviation"] == 0.0,
+          f"bench_sweeps: looped and batched runs differ: {sdoc}")
+
+    # (c) Fig. 2 at the paper's scale, (d) Theorem 1
+    fig2 = fig2_full()
+    thm = io.StringIO()
+    with contextlib.redirect_stdout(thm):
+        bound_rows = convergence_bound.main()
+    check(len(bound_rows) == 6, f"thm1: {len(bound_rows)} rows")
+    return dict(
+        phase="benchmarks", launches=total, launches_per_kernel=want,
+        bench_kernels=dict(seconds=kernels_s, device=kdoc["device"],
+                           power_limit=kdoc["power_limit"], rows=rows,
+                           out="BENCH_torch_kernels.json"),
+        bench_sweeps=dict(seconds=sweeps_s, **{
+            k: sdoc[k] for k in (
+                "grid_points", "rounds", "looped_us_per_round",
+                "compiled_cold_us_per_round", "compiled_steady_us_per_round",
+                "speedup_steady", "max_final_acc_deviation", "final_accs")},
+            out="BENCH_torch_sweeps.json"),
+        fig2=fig2,
+        thm1=[ln for ln in thm.getvalue().splitlines()
+              if ln.startswith("thm1,")])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2445,12 +2604,15 @@ def main() -> int:
     emit(sd)
     fl = run_fedllm_phase(device, sl)
     emit(fl)
+    bm = run_benchmarks_phase(device)
+    emit(bm)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],
              "channel": ch["launches"], "robust": rb["launches"],
              "local": lo["launches"], "population": po["launches"],
-             "sharded": sd["launches"], "fedllm": fl["launches"]}
+             "sharded": sd["launches"], "fedllm": fl["launches"],
+             "benchmarks": bm["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -2482,6 +2644,13 @@ def main() -> int:
                                      "plain_ms", "library_ms", "bound",
                                      "bound_share", "max_abs_err")}
                 for rec in streamed if rec["kernel"] == name]
+        if name != "ef_sparsify":
+            kernels[-1]["bench_kernels"] = [
+                {k: r[k] for k in ("size", "shape", "graph_ms", "kernel_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "bound_share", "max_abs_err",
+                                   "launches_per_call")}
+                for r in bm["bench_kernels"]["rows"] if r["kernel"] == name]
         if name in ("ota_project", "amp_fused"):
             one = sharded_shapes[0 if name == "ota_project" else 1]
             kernels[-1]["sharded_rank_shape"] = {

@@ -1424,3 +1424,73 @@ def test_fedllm_round_on_card_bitwise_plain(dev):
     for k in ok["metrics"]:
         assert torch.equal(ok["metrics"][k], op["metrics"][k])
     assert torch.isfinite(ok["loss"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the models on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+#: the attention-family configs (``ATTN_ARCHS`` of tests/test_torch_models.py,
+#: which holds the CPU port against the reference at these bars)
+ATTN_ARCHS = ("smollm_360m", "qwen3_8b", "yi_34b", "mistral_large_123b",
+              "qwen2_vl_7b", "whisper_base")
+F32_LOSS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+BF16_LOSS_RTOL = 1e-3
+
+
+def _model_batch(cfg, seed, B=2, L=12):
+    """tests/test_torch_models.py's batch: tokens, and the vision or audio
+    inputs of the configs that take them, from a numpy seed."""
+    r = np.random.default_rng(seed)
+    b = {"tokens": r.integers(0, cfg.vocab, (B, L)).astype(np.int32)}
+    if cfg.mrope_sections is not None:
+        P = cfg.n_vision_tokens
+        b["extra"] = (0.02 * r.standard_normal((B, P, cfg.d_model))).astype(
+            np.float32)
+        b["positions"] = np.broadcast_to(
+            np.arange(P + L)[None, :, None], (B, P + L, 3)).astype(np.int32)
+    if cfg.encoder is not None:
+        b["frames"] = (0.02 * r.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.encoder.d_model))).astype(
+                np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_model_on_card_matches_cpu(dev, arch):
+    """The reduced config's seeded weights and one batch on the card and on
+    the CPU: the float32 loss within 1e-5 relative and its gradient within
+    rtol 1e-4 / atol 1e-6 (remat on), the bfloat16 loss within 1e-3
+    relative -- the CPU port's bars against the reference.  Prints the
+    measured gaps."""
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch, tree_leaves, tree_map
+    from repro_torch.models import model as tmodel
+    cfg = get_config(arch).reduced()
+    params = tmodel.init_params(cfg, rng.PRNGKey(0, device="cpu"))
+    batch = _model_batch(cfg, 1)
+
+    def run(device, dtype):
+        p = tree_map(lambda a: a.detach().clone().to(device).requires_grad_(
+            dtype == torch.float32), params)
+        loss, _ = tmodel.loss_fn(p, cfg, to_torch(batch, device),
+                                 compute_dtype=dtype, remat=True)
+        if dtype != torch.float32:
+            return float(loss), None
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return float(loss), torch.cat([g.reshape(-1) for g in grads]).cpu()
+
+    cpu_loss, cpu_grad = run("cpu", torch.float32)
+    card_loss, card_grad = run(dev, torch.float32)
+    cpu16, _ = run("cpu", torch.bfloat16)
+    card16, _ = run(dev, torch.bfloat16)
+    print(f"\nmodel on card vs cpu {arch}: f32 loss rel "
+          f"{abs(card_loss - cpu_loss) / abs(cpu_loss):.3e}, grad max abs "
+          f"{float((card_grad - cpu_grad).abs().max()):.3e}, bf16 loss rel "
+          f"{abs(card16 - cpu16) / abs(cpu16):.3e}")
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=F32_LOSS_RTOL)
+    np.testing.assert_allclose(card_grad.numpy(), cpu_grad.numpy(),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(card16, cpu16, rtol=BF16_LOSS_RTOL)
