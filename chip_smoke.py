@@ -168,7 +168,23 @@ Phases, one JSON line each:
             ``stream_round_ref`` on the card; (c) the default chunk_size
             2**14: ``stream_round`` over the first 64 chunks, ms per chunk
             and that times 22 084 as the projected round;
-14. benchmarks
+14. fedllm_moe
+            the same streamed round at granite-moe-1b-a400m's published
+            widths (d_model 1024, 16 q / 8 kv heads of 64, 32 experts
+            top-8 of width 512, vocab 49 155, tied embeddings) with the
+            depth cut to 16 of its 24 layers, the one cut (the whole model
+            would need ~88 GB at ~64 bytes a parameter): d = 906 530 816,
+            217 chunks of 2**22; one warm-up round and one timed round
+            through ``run_segment`` with exactly 217 launches of
+            ef_sparsify, ota_project and amp_fused and none of
+            ota_project_t; finite losses, metrics and MoE aux; the split of
+            a further round; peak allocated memory; the first two chunks
+            bitwise the plain run and ``stream_round_ref``.  Then one
+            device's bfloat16 loss and gradient (remat on, seeded weights,
+            2 x 16 tokens) of rwkv6-3b at 2 layers and of zamba2-7b at 7
+            (6 Mamba2 layers, the shared block once, one tail layer), at
+            their published widths: finite, ms and peak memory;
+15. benchmarks
             the port's benchmark scripts (``repro_torch.benchmarks``): (a)
             ``bench_kernels`` at its full sizes (64 x 1024 -> 256, 10 AMP
             iterations; 256 x 4096 -> 1024, 20), every kernel path within
@@ -182,8 +198,10 @@ Phases, one JSON line each:
             accuracies and ms per round, and the IID ordering ideal >=
             a_dsgd >= d_dsgd beside the paper's claim; (d) the Theorem 1
             rows.  (a) and (b) write ``BENCH_torch_kernels.json`` and
-            ``BENCH_torch_sweeps.json`` at the checkout's root;
-15. kernels the per-kernel record: route, source, the TPU kernel it
+            ``BENCH_torch_sweeps.json`` at the checkout's root; beside each
+            projection row, one ``torch.bmm`` on A materialised beforehand
+            (``library_ms`` per call, ``library_graph_ms`` by replay);
+16. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
@@ -194,8 +212,8 @@ fedllm phase's shapes, each bitwise its plain version: ef_sparsify on 4 x
 chunk time with fewer repetitions: a call takes tens of ms).
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
-population, each run of sharded, fedllm's timed rounds, bench_kernels)
-runs with every launch count set to 0 just before it and read just after.
+population, each run of sharded, fedllm's and fedllm_moe's timed rounds,
+bench_kernels) runs with every launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -261,6 +279,7 @@ KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
                "ota_project_t": "unfused_decode", "amp_fused": "slice"}
 PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "fedllm": ("ef_sparsify", "ota_project", "amp_fused"),
+                "fedllm_moe": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
@@ -330,6 +349,13 @@ FEDLLM_DEFAULT_CHUNK, FEDLLM_DEFAULT_CHUNKS = 1 << 14, 22_084
 FEDLLM_TIMED_CHUNKS = 64
 #: chunks of the 2**22 stream held bitwise against the plain run
 FEDLLM_PLAIN_CHUNKS = 2
+#: the fedllm_moe phase: granite-moe-1b-a400m at its published widths, 16
+#: of its 24 layers (the peak-memory cut), the fedllm phase's m, batch,
+#: tokens and chunk; one warm-up round and one timed one
+MOE_ARCH, MOE_LAYERS = "granite_moe_1b_a400m", 16
+MOE_D, MOE_CHUNKS, MOE_ROUNDS = 906_530_816, 217, 1
+#: one device's loss and gradient at published widths, depth cut
+WIDE_DEPTHS = (("rwkv6_3b", 2), ("zamba2_7b", 7))
 
 
 class CheckFailed(RuntimeError):
@@ -2212,7 +2238,6 @@ def _events_ms(fn):
 def run_fedllm_phase(device, slice_line):
     import torch
     from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
-    from repro_torch.core.schemes import MACContext, get_scheme
     from repro_torch.experiments.engine import round_keys
     from repro_torch.kernels import ops
     from repro_torch.train import fedllm
@@ -2274,29 +2299,8 @@ def run_fedllm_phase(device, slice_line):
     # (b) the first chunks on the same gradients: bitwise the plain run
     # and the per-chunk round_simulated loop on the card
     n = FEDLLM_PLAIN_CHUNKS
-    plain = get_scheme(dataclasses.replace(ota, use_kernel=False),
-                       fed.chunk_len, fed.m, device=device)
-    plain_ctx = dataclasses.replace(fed.ctx, use_kernel=False)
-    ops.reset_launches()
-    kern = fedllm.stream_round(fed.scheme, gch[:n], carry[2][:n], t, key,
-                               fed.ctx)
-    loop = fedllm.stream_round_ref(fed.scheme, gch[:n], carry[2][:n], t,
-                                   key, fed.ctx)
-    check(ops.launch_counts()["amp_fused"] == 2 * n,
-          "fedllm (b): the kernel runs did not launch amp_fused per chunk")
-    ops.reset_launches()
-    (ref_out), plain_ms = _events_ms(lambda: fedllm.stream_round(
-        plain, gch[:n], carry[2][:n], t, key, plain_ctx))
-    check(sum(ops.launch_counts().values()) == 0,
-          "fedllm (b): the plain run launched a kernel")
-    for name, other in (("use_kernel=False", ref_out),
-                        ("stream_round_ref", loop)):
-        check(torch.equal(kern[0], other[0])
-              and torch.equal(kern[1], other[1])
-              and all(torch.equal(kern[2][k], other[2][k])
-                      for k in kern[2]),
-              f"fedllm (b): the first {n} chunks differ from {name}")
-    del kern, loop, ref_out
+    plain_ms = _first_chunks_bitwise(fed, ota, gch, carry[2], t, key, device,
+                                     "fedllm (b)")
 
     # (c) the default chunk size over its first chunks
     fed14 = fedllm.CompiledFedLLM(arch, train_cfg, ota,
@@ -2345,7 +2349,196 @@ def run_fedllm_phase(device, slice_line):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the benchmarks (repro_torch.benchmarks)
+# phase 14: the MoE streamed round and the other families at full width
+# ---------------------------------------------------------------------------
+
+
+def _first_chunks_bitwise(fed, ota, gch, deltas, t, key, device, what):
+    """The first ``FEDLLM_PLAIN_CHUNKS`` chunks' stream on the kernels,
+    bitwise the use_kernel=False run and ``stream_round_ref``; the plain
+    run's ms."""
+    import torch
+    from repro_torch.core.schemes import get_scheme
+    from repro_torch.kernels import ops
+    from repro_torch.train import fedllm
+
+    n = FEDLLM_PLAIN_CHUNKS
+    plain = get_scheme(dataclasses.replace(ota, use_kernel=False),
+                       fed.chunk_len, fed.m, device=device)
+    plain_ctx = dataclasses.replace(fed.ctx, use_kernel=False)
+    ops.reset_launches()
+    kern = fedllm.stream_round(fed.scheme, gch[:n], deltas[:n], t, key,
+                               fed.ctx)
+    loop = fedllm.stream_round_ref(fed.scheme, gch[:n], deltas[:n], t, key,
+                                   fed.ctx)
+    check(ops.launch_counts()["amp_fused"] == 2 * n,
+          f"{what}: the kernel runs did not launch amp_fused per chunk")
+    ops.reset_launches()
+    ref_out, plain_ms = _events_ms(lambda: fedllm.stream_round(
+        plain, gch[:n], deltas[:n], t, key, plain_ctx))
+    check(sum(ops.launch_counts().values()) == 0,
+          f"{what}: the plain run launched a kernel")
+    for name, other in (("use_kernel=False", ref_out),
+                        ("stream_round_ref", loop)):
+        check(torch.equal(kern[0], other[0])
+              and torch.equal(kern[1], other[1])
+              and all(torch.equal(kern[2][k], other[2][k])
+                      for k in kern[2]),
+              f"{what}: the first {n} chunks differ from {name}")
+    return plain_ms
+
+
+def wide_loss_and_grad(device, arch_id: str, n_layers: int) -> dict:
+    """One device's bfloat16 loss and gradient (remat on) of a zoo model at
+    its published widths with ``n_layers`` layers, on seeded weights and 2
+    x 16 seeded tokens: finite, ms by CUDA events, peak memory."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.models import model as model_lib
+
+    free_device_memory()
+    cfg = dataclasses.replace(get_config(arch_id), n_layers=n_layers)
+    params = model_lib.init_params(cfg, rng.PRNGKey(0, device=device))
+    n_params = model_lib.param_count(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    batch = {"tokens": rng.randint(rng.PRNGKey(1, device=device),
+                                   (FEDLLM_BATCH, FEDLLM_SEQ), 0, cfg.vocab)}
+
+    def step():
+        loss, met = model_lib.loss_fn(params, cfg, batch,
+                                      compute_dtype=torch.bfloat16,
+                                      remat=True)
+        return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+    step()                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), ms = _events_ms(step)
+    peak = torch.cuda.max_memory_allocated()
+    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    loss = float(loss.detach())
+    check(math.isfinite(loss) and finite and math.isfinite(gnorm),
+          f"{arch_id} at {n_layers} layers: loss {loss}, gradient finite "
+          f"{finite}")
+    out = dict(arch=arch_id, n_layers=n_layers, params=n_params, loss=loss,
+               grad_norm=gnorm, ms=ms, peak_allocated_gb=peak / 1e9)
+    del params, grads
+    free_device_memory()
+    return out
+
+
+def run_fedllm_moe_phase(device) -> dict:
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.experiments.engine import round_keys
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import fedllm
+
+    free_device_memory()
+    arch = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    ota = dataclasses.replace(ota_overrides(MOE_ARCH), use_kernel=True)
+    train_cfg = TrainConfig()
+    fed = fedllm.CompiledFedLLM(arch, train_cfg, ota, m=FEDLLM_M,
+                                batch=FEDLLM_BATCH, seq_len=FEDLLM_SEQ,
+                                chunk_size=FEDLLM_CHUNK, seed=0,
+                                device=device)
+    check(fed.d == MOE_D and fed.n_chunks == MOE_CHUNKS,
+          f"fedllm_moe: d {fed.d}, {fed.n_chunks} chunks; expected {MOE_D}, "
+          f"{MOE_CHUNKS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = fed.carry0()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    keys = round_keys(1 + MOE_ROUNDS, 0, device=device)
+
+    # (a) one warm-up round, then the timed rounds through run_segment
+    carry, warm = fed.run_segment({}, keys[:1], None, carry, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"ef_sparsify": MOE_CHUNKS, "ota_project": MOE_CHUNKS,
+            "ota_project_t": 0, "amp_fused": MOE_CHUNKS}
+    total = {k: 0 for k in KERNELS}
+    ms, losses = [], [float(warm["loss"][0])]
+    for t in range(1, 1 + MOE_ROUNDS):
+        ops.reset_launches()
+        (carry, out), t_ms = _events_ms(lambda: fed.run_segment(
+            {}, keys[t:t + 1], None, carry, t))
+        launches = ops.launch_counts()
+        check(launches == want, f"fedllm_moe round {t}: launches {launches}, "
+              f"expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        ms.append(t_ms)
+        losses.append(float(out["loss"][0]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"fedllm_moe: losses {losses}")
+    mets = {k: float(v[0]) for k, v in out["metrics"].items()}
+    check(all(map(math.isfinite, mets.values())),
+          f"fedllm_moe: metrics {mets}")
+
+    # the split of one more round into its pieces, by CUDA events
+    t = 1 + MOE_ROUNDS
+    key = round_keys(t + 1, 0, device=device)[t]
+    (gflat, loss), grads_ms = _events_ms(lambda: fed._grads(carry[0], key))
+    gch = gflat.view(fed.m, fed.n_chunks, fed.chunk_len).transpose(0, 1)
+    (ghats, _, _), stream_ms = _events_ms(lambda: fedllm.stream_round(
+        fed.scheme, gch, carry[2], t, key, fed.ctx))
+    ghat = ghats.reshape(fed.d_pad)[:fed.d]
+    _, adam_ms = _events_ms(lambda: fed.opt.apply(
+        carry[0], fed.unravel(ghat), carry[1]))
+    del ghats, ghat
+    # the MoE aux of device 0's batch of that round
+    with torch.no_grad():
+        dev_key = rng.split(rng.fold_in(key, fedllm.SALT_DATA), fed.m)[0]
+        _, met0 = model_lib.loss_fn(carry[0], arch, fed._device_batch(dev_key),
+                                    compute_dtype=fed.compute_dtype,
+                                    remat=False)
+    aux = float(met0["aux"])
+    check(math.isfinite(aux) and aux > 0, f"fedllm_moe: MoE aux {aux}")
+
+    # (b) the first chunks on the same gradients: bitwise the plain run
+    # and the per-chunk round_simulated loop on the card
+    plain_ms = _first_chunks_bitwise(fed, ota, gch, carry[2], t, key, device,
+                                     "fedllm_moe (b)")
+    del gflat, gch, carry
+    free_device_memory()
+
+    # (c) the other families' blocks at their published widths
+    wide = [wide_loss_and_grad(device, a, n) for a, n in WIDE_DEPTHS]
+    return dict(
+        phase="fedllm_moe", arch=MOE_ARCH, n_layers=MOE_LAYERS,
+        reduced=[f"n_layers {MOE_LAYERS} of 24 (peak memory: ~64 bytes a "
+                 "parameter)"],
+        d=fed.d, d_pad=fed.d_pad, m=fed.m, batch=FEDLLM_BATCH,
+        seq_len=FEDLLM_SEQ, chunk_size=FEDLLM_CHUNK, n_chunks=fed.n_chunks,
+        blocks_per_chunk=fed.scheme.projector.n_blocks,
+        moe=dict(num_experts=arch.moe.num_experts, top_k=arch.moe.top_k,
+                 d_expert=arch.moe.d_expert),
+        config=dict(projection=ota.projection, block_size=ota.block_size,
+                    s_frac=ota.s_frac, k_frac=ota.k_frac,
+                    rademacher=ota.rademacher, use_kernel=ota.use_kernel,
+                    state_dtype=ota.state_dtype,
+                    compute_dtype=train_cfg.compute_dtype,
+                    remat=train_cfg.remat, warmup_steps=train_cfg.warmup_steps),
+        init_s=init_s, rounds=MOE_ROUNDS, ms_per_round=ms,
+        round_split_ms=dict(grads=grads_ms, stream=stream_ms, adam=adam_ms),
+        stream_ms_per_chunk=stream_ms / fed.n_chunks,
+        peak_allocated_gb=peak / 1e9, losses=losses, final_metrics=mets,
+        moe_aux=aux, moe_aux_per_layer=aux / MOE_LAYERS, launches=total,
+        first_chunks_vs_plain="bitwise", first_chunks_vs_ref="bitwise",
+        plain_chunks=FEDLLM_PLAIN_CHUNKS, plain_ms_for_chunks=plain_ms,
+        wide=wide)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the benchmarks (repro_torch.benchmarks)
 # ---------------------------------------------------------------------------
 
 #: the paper's Fig. 2 claim (PAPER.md): A-DSGD converges faster than D-DSGD,
@@ -2363,8 +2556,12 @@ def free_device_memory() -> None:
 def bench_kernel_rows(device) -> list:
     """Each bench_kernels op's kernel at the full sizes: its own device
     time by CUDA-graph replay (10 calls captured, 3 replays), its bound and
-    the share of it, on the benchmark's own inputs."""
+    the share of it, on the benchmark's own inputs; for the projections,
+    the ``torch.bmm`` yardstick on A materialised beforehand (4.3 GB at
+    ``large``)."""
+    import torch
     from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels import ref
 
     rows = []
     for size, nb, c, s, iters in bench_kernels.SIZES_FULL:
@@ -2385,6 +2582,21 @@ def bench_kernel_rows(device) -> list:
                              shape=[nb, c, s], iters=iters, graph_ms=g,
                              bound_ms=bounds[op][0], bound_by=bounds[op][1],
                              bound_share=bounds[op][0] / g))
+        # yardsticks: one torch.bmm on A (and on A^T) materialised
+        # beforehand, as the kernel checks time them
+        A = ref.block_matrix_ref(bench_kernels.SEED,
+                                 torch.arange(nb, device=device), s, c, True)
+        lib = {}
+        for op, mat, vec in (
+                ("proj_fwd", A, x[:, :, None]),
+                ("proj_adj", A.transpose(1, 2).contiguous(), yb[:, :, None])):
+            lib[op] = (cuda_ms(lambda: torch.bmm(mat, vec)),
+                       graph_ms(lambda: torch.bmm(mat, vec), warmup=1, n=10,
+                                replays=3))
+        del A, mat
+        for r in rows[-len(calls):]:
+            ms = lib.get(r["op"], (None, None))
+            r.update(library_ms=ms[0], library_graph_ms=ms[1])
         del x, yb, calls
         free_device_memory()
     return rows
@@ -2604,6 +2816,8 @@ def main() -> int:
     emit(sd)
     fl = run_fedllm_phase(device, sl)
     emit(fl)
+    fm = run_fedllm_moe_phase(device)
+    emit(fm)
     bm = run_benchmarks_phase(device)
     emit(bm)
 
@@ -2612,7 +2826,7 @@ def main() -> int:
              "channel": ch["launches"], "robust": rb["launches"],
              "local": lo["launches"], "population": po["launches"],
              "sharded": sd["launches"], "fedllm": fl["launches"],
-             "benchmarks": bm["launches"]}
+             "fedllm_moe": fm["launches"], "benchmarks": bm["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -2649,7 +2863,8 @@ def main() -> int:
                 {k: r[k] for k in ("size", "shape", "graph_ms", "kernel_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "bound_share", "max_abs_err",
-                                   "launches_per_call")}
+                                   "launches_per_call", "library_ms",
+                                   "library_graph_ms")}
                 for r in bm["bench_kernels"]["rows"] if r["kernel"] == name]
         if name in ("ota_project", "amp_fused"):
             one = sharded_shapes[0 if name == "ota_project" else 1]

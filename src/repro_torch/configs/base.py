@@ -6,9 +6,8 @@ is copied here field for field, defaults included: :class:`OTAConfig`,
 :class:`TrainConfig`, :class:`ShapeConfig`, ``INPUT_SHAPES``,
 :func:`get_config`, :func:`ota_overrides`, :func:`approx_param_count` and
 :func:`active_param_count`.  Every architecture of ``ARCH_IDS`` has its
-config module in this package, copied as data; the models of
-:mod:`repro_torch.models` run the attention families and raise
-``NotImplementedError`` for the MoE, Mamba2, RWKV6 and hybrid blocks.
+config module in this package, copied as data, and the models of
+:mod:`repro_torch.models` run all ten.
 """
 from __future__ import annotations
 

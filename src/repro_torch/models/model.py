@@ -1,7 +1,7 @@
 """Public model API: init and the train forward (loss).
 
 The port of the reference's ``repro/models/model.py``.  ``Batch`` covers
-every modality the attention families take:
+every modality the zoo's families take:
 
   tokens    (B, L)  int32        — always present (labels = tokens shifted)
   positions (B, L[,3]) int32     — optional (M-RoPE needs 3-D)

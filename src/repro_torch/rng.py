@@ -162,6 +162,8 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 ``jax.random.uniform`` on ``[minval, maxval)``."""
+    if key.device.type == "meta":
+        return _shape_only(key, shape)
     bits = random_bits(key, shape)
     floats = _as_f32((bits >> 9) | 0x3F800000) - 1.0
     # python scalars, not tensors made on the device: a host-to-device copy

@@ -3,9 +3,10 @@
 The port of the reference's ``repro/train/fedllm.py`` without
 ``serve_while_train`` (the serve slice brings it).  The paper's federated
 round aggregates one d = 7850 vector; here the same registered ``Scheme``
-contract runs over the gradient of any attention-family model in the zoo
-(:mod:`repro_torch.models`), streamed through the bandwidth-limited MAC in
-fixed-size chunks:
+contract runs over the gradient of any model in the zoo
+(:mod:`repro_torch.models`: the attention, MoE, Mamba2, RWKV6 and hybrid
+families), streamed through the bandwidth-limited MAC in fixed-size
+chunks:
 
 * the param tree is flattened in ``ravel_pytree``'s leaf order
   (:func:`repro_torch.train.trainer.ravel_meta`), so every device and the

@@ -1430,13 +1430,19 @@ def test_fedllm_round_on_card_bitwise_plain(dev):
 # the models on the card against the CPU port
 # ---------------------------------------------------------------------------
 
-#: the attention-family configs (``ATTN_ARCHS`` of tests/test_torch_models.py,
-#: which holds the CPU port against the reference at these bars)
-ATTN_ARCHS = ("smollm_360m", "qwen3_8b", "yi_34b", "mistral_large_123b",
-              "qwen2_vl_7b", "whisper_base")
+#: the ten zoo archs (tests/test_torch_models.py holds the CPU port against
+#: the reference at these bars)
+MODEL_ARCHS = ("smollm_360m", "qwen3_8b", "yi_34b", "mistral_large_123b",
+               "qwen2_vl_7b", "whisper_base", "granite_moe_1b_a400m",
+               "granite_moe_3b_a800m", "rwkv6_3b", "zamba2_7b")
 F32_LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 BF16_LOSS_RTOL = 1e-3
+#: tests/test_torch_models.py's ``GRAD_GAPS``: the archs whose gradients
+#: cancel below the absolute bar in places, with the count of entries that
+#: may leave it (None: any) and each one's bound as a multiple of its
+#: leaf's largest magnitude
+GRAD_GAPS = {"rwkv6_3b": (8, 5e-6), "zamba2_7b": (None, 5e-5)}
 
 
 def _model_batch(cfg, seed, B=2, L=12):
@@ -1457,13 +1463,13 @@ def _model_batch(cfg, seed, B=2, L=12):
     return b
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_model_on_card_matches_cpu(dev, arch):
     """The reduced config's seeded weights and one batch on the card and on
     the CPU: the float32 loss within 1e-5 relative and its gradient within
-    rtol 1e-4 / atol 1e-6 (remat on), the bfloat16 loss within 1e-3
-    relative -- the CPU port's bars against the reference.  Prints the
-    measured gaps."""
+    rtol 1e-4 / atol 1e-6 (remat on; ``GRAD_GAPS`` for rwkv6 and zamba2),
+    the bfloat16 loss within 1e-3 relative -- the CPU port's bars against
+    the reference.  Prints the measured gaps."""
     from repro_torch import rng
     from repro_torch.configs import get_config
     from repro_torch.convert import to_torch, tree_leaves, tree_map
@@ -1480,17 +1486,32 @@ def test_model_on_card_matches_cpu(dev, arch):
         if dtype != torch.float32:
             return float(loss), None
         grads = torch.autograd.grad(loss, tree_leaves(p))
-        return float(loss), torch.cat([g.reshape(-1) for g in grads]).cpu()
+        return float(loss), [g.cpu() for g in grads]
 
     cpu_loss, cpu_grad = run("cpu", torch.float32)
     card_loss, card_grad = run(dev, torch.float32)
     cpu16, _ = run("cpu", torch.bfloat16)
     card16, _ = run(dev, torch.bfloat16)
+    flat = [torch.cat([g.reshape(-1) for g in gs]).numpy()
+            for gs in (card_grad, cpu_grad)]
+    out = np.abs(flat[0] - flat[1]) > GRAD_ATOL + GRAD_RTOL * np.abs(flat[1])
+    scale_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(card_grad, cpu_grad))
     print(f"\nmodel on card vs cpu {arch}: f32 loss rel "
           f"{abs(card_loss - cpu_loss) / abs(cpu_loss):.3e}, grad max abs "
-          f"{float((card_grad - cpu_grad).abs().max()):.3e}, bf16 loss rel "
+          f"{float(np.abs(flat[0] - flat[1]).max()):.3e}, outside the bar "
+          f"{int(out.sum())} of {out.size}, max per leaf scale "
+          f"{scale_err:.3e}, bf16 loss rel "
           f"{abs(card16 - cpu16) / abs(cpu16):.3e}")
     np.testing.assert_allclose(card_loss, cpu_loss, rtol=F32_LOSS_RTOL)
-    np.testing.assert_allclose(card_grad.numpy(), cpu_grad.numpy(),
-                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if arch not in GRAD_GAPS:
+        np.testing.assert_allclose(flat[0], flat[1], rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+    else:
+        count, scale_atol = GRAD_GAPS[arch]
+        assert count is None or out.sum() <= count, int(out.sum())
+        for a, b in zip(card_grad, cpu_grad):
+            np.testing.assert_allclose(
+                a.numpy(), b.numpy(), rtol=GRAD_RTOL,
+                atol=max(GRAD_ATOL, scale_atol * float(b.abs().max())))
     np.testing.assert_allclose(card16, cpu16, rtol=BF16_LOSS_RTOL)

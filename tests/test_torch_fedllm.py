@@ -32,6 +32,23 @@ Bars, each measured on this configuration:
   by up to lr, and those stay within lr x rounds = 3e-3;
 * a resume bitwise the uninterrupted run; a resume from a checkpoint the
   JAX package wrote within the run's bars.
+
+The other families at the same configuration: granite-moe (the MoE
+dispatch in the gradient) through ``carry0``, ``_grads``, ``stream_round``
+and a 3-round ``run`` at the bars above; two rounds of rwkv6 and zamba2
+at the run's bars, with the parameter flips counted per family.  Each
+family's own bars, measured:
+
+* granite-moe's stream from the reference's gradients: 43 entries of ĝ
+  outside the AMP bar, in 2 chunks (bar: 64 entries in at most 2); its
+  3-round run moves 286 params by more than 1e-4 (bar 400), all within
+  lr x rounds;
+* two rounds: rwkv6 335 flipped params (bar 500), the frames' ``alpha``
+  within 7.3e-6 (bar 2e-5); zamba2 646 (bar 900), ``alpha`` within 2.2e-5
+  (bar 5e-5): its round-0 gradient carries the SSD's ~1e-5 relative gap
+  (ROADMAP §3), and round 1's frame scale follows it.  The full-width
+layouts of smollm-360m and granite-moe-1b-a400m (at 16 and 24 layers) come
+from shapes alone.
 """
 import dataclasses
 import tempfile
@@ -87,20 +104,21 @@ def _key(key):
     return torch.from_numpy(np.asarray(key).astype(np.int64))
 
 
-def _assert_run_close(got, want):
+def _assert_run_close(got, want, param_flips=PARAM_FLIPS,
+                      metric_rtol=METRIC_RTOL):
     np.testing.assert_allclose(got["loss"].numpy(), np.asarray(want["loss"]),
                                rtol=LOSS_RTOL)
     assert set(got["metrics"]) == set(want["metrics"])
     for k, v in want["metrics"].items():
         np.testing.assert_allclose(got["metrics"][k].numpy(), np.asarray(v),
-                                   rtol=METRIC_RTOL)
+                                   rtol=metric_rtol)
     flips = 0
     for a, b in zip(tree_leaves(got["params"]),
                     jax.tree.leaves(want["params"])):
         diff = np.abs(a.numpy() - np.asarray(b))
         flips += int((diff > PARAM_ATOL).sum())
         assert diff.max() <= PARAM_FLIP_ATOL
-    assert flips <= PARAM_FLIPS, flips
+    assert flips <= param_flips, flips
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -299,10 +317,73 @@ def test_overrides_reach_the_scheme(ref, port):
     assert port.scheme.p_sched.any()
 
 
-def test_non_attention_arch_raises():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        fedllm.CompiledFedLLM(get_config("rwkv6_3b").reduced(),
-                              TrainConfig(), OTAConfig(**OTA), device="cpu")
+MOE_ARCH = "granite_moe_1b_a400m"
+
+
+@pytest.fixture(scope="module")
+def ref_moe():
+    """granite-moe reduced through the reference: its carry, round-0
+    gradients and stream, and a 3-round run."""
+    fed = _jfed(MOE_ARCH)
+    key = jround_keys(1, 0)[0]
+    carry = fed.carry0()
+    g, loss = jax.jit(fed._grads)(carry[0], key)
+    gch = np.asarray(g).reshape(fed.m, fed.n_chunks,
+                                fed.chunk_len).transpose(1, 0, 2)
+    stream = jax.device_get(jax.jit(lambda g, dl: jfedllm.stream_round(
+        fed.scheme, g, dl, 0, key, fed.ctx))(gch, carry[2]))
+    return dict(fed=fed, key=key, params=jax.device_get(carry[0]),
+                grads=np.asarray(g), loss=float(loss),
+                gch=np.ascontiguousarray(gch), stream=stream,
+                run=jax.device_get(fed.run(jround_keys(ROUNDS, 0))))
+
+
+def test_moe_round_pieces_match_reference(ref_moe):
+    """granite-moe reduced: the layout, ``carry0`` bitwise, the per-device
+    gradients through the MoE dispatch at the gradient bar, and the stream
+    from the reference's gradients at the round's bars."""
+    port, fed = _tfed(MOE_ARCH), ref_moe["fed"]
+    assert (port.d, port.chunk_len, port.n_chunks, port.d_pad) == \
+        (fed.d, fed.chunk_len, fed.n_chunks, fed.d_pad)
+    params, _, deltas = port.carry0()
+    for a, b in zip(tree_leaves(params), jax.tree.leaves(ref_moe["params"])):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert not deltas.any()
+    g, loss = port._grads(params, _key(ref_moe["key"]))
+    np.testing.assert_allclose(g.numpy(), ref_moe["grads"], rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    np.testing.assert_allclose(float(loss), ref_moe["loss"], rtol=LOSS_RTOL)
+    ghats, deltas, mets = _stream(port, ref_moe)
+    wghat, wdeltas, wmets = ref_moe["stream"]
+    np.testing.assert_array_equal(deltas.numpy(), np.asarray(wdeltas))
+    got, want = ghats.numpy(), np.asarray(wghat)
+    out = np.abs(got - want) > AMP_ATOL + AMP_RTOL * np.abs(want)
+    assert out.sum() <= FLIP_COUNT and out.any(axis=1).sum() <= 2, \
+        (out.sum(), np.nonzero(out.any(axis=1))[0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_ATOL)
+    for k in wmets:
+        np.testing.assert_allclose(mets[k].numpy(), np.asarray(wmets[k]),
+                                   rtol=METRIC_RTOL)
+
+
+def test_moe_run_matches_reference(ref_moe):
+    out = _tfed(MOE_ARCH).run(round_keys(ROUNDS, 0, device="cpu"))
+    _assert_run_close(out, ref_moe["run"], param_flips=400)
+    assert np.isfinite(out["loss"].numpy()).all()
+
+
+#: the two-round runs' bars per family (module docstring)
+TWO_ROUNDS = {"rwkv6_3b": dict(param_flips=500, metric_rtol=2e-5),
+              "zamba2_7b": dict(param_flips=900, metric_rtol=5e-5)}
+
+
+@pytest.mark.parametrize("arch", sorted(TWO_ROUNDS))
+def test_two_rounds_match_reference(arch):
+    keys = jround_keys(2, 0)
+    want = jax.device_get(_jfed(arch).run(keys))
+    got = _tfed(arch).run(round_keys(2, 0, device="cpu"))
+    _assert_run_close(got, want, **TWO_ROUNDS[arch])
+    assert np.isfinite(got["loss"].numpy()).all()
 
 
 def test_shapes_of_the_full_width_round():
@@ -323,3 +404,25 @@ def test_shapes_of_the_full_width_round():
                                   chunk_size=1 << 22)
     assert (jfed.d, jfed.n_chunks) == (361_821_120, 87)
     assert jnp.dtype(jfed.compute_dtype) == jnp.bfloat16
+
+
+@pytest.mark.parametrize("n_layers,d,n_chunks", [
+    (16, 906_530_816, 217), (24, 1_334_628_352, 319)])
+def test_shapes_of_the_moe_full_width_round(n_layers, d, n_chunks):
+    """granite-moe-1b-a400m at its published widths, at the card's 16 of
+    its 24 layers and whole: d and the 2^22 chunk count from shapes alone,
+    the reference's too."""
+    from repro_torch.configs.base import ota_overrides
+    arch = "granite_moe_1b_a400m"
+    ota = dataclasses.replace(ota_overrides(arch), use_kernel=True)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    fed = fedllm.CompiledFedLLM(cfg, TrainConfig(), ota, chunk_size=1 << 22,
+                                device="cpu")
+    assert (fed.d, fed.n_chunks, fed.chunk_len) == (d, n_chunks, 1 << 22)
+    assert fed.scheme.projector.n_blocks == 1024
+    assert fed.compute_dtype == torch.bfloat16 and fed.ctx.use_kernel
+    jfed = jfedllm.CompiledFedLLM(
+        dataclasses.replace(jget_config(arch), n_layers=n_layers),
+        JTrainConfig(), JOTAConfig(**dataclasses.asdict(ota)),
+        chunk_size=1 << 22)
+    assert (jfed.d, jfed.n_chunks) == (d, n_chunks)

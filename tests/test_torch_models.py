@@ -1,5 +1,5 @@
-"""The port's zoo configs, model RNG and attention-family models against the
-JAX package (``repro.configs``, ``jax.random``, ``repro.models``).
+"""The port's zoo configs, model RNG and models against the JAX package
+(``repro.configs``, ``jax.random``, ``repro.models``).
 
 Held against the live reference on the CPU:
 
@@ -9,15 +9,25 @@ Held against the live reference on the CPU:
 * ``rng.randint`` and ``rng.truncated_normal`` bitwise (stacked keys as
   ``jax.vmap`` draws them);
 * ``ravel_meta``'s d, leaf order and unraveller against ``ravel_pytree``;
-* ``init_params`` bitwise on the six attention-family reduced configs;
+* ``init_params`` bitwise on the ten archs' reduced configs, and on
+  zamba2 with a tail (``n_layers`` 5, the shared block used twice, then one
+  Mamba2 layer); ``abstract_params`` of the four MoE, Mamba2, RWKV6 and
+  hybrid archs at their published widths against ``jax.eval_shape``;
 * from the reference's params: the float32 loss within 1e-5 relative (the
   reference under ``jit``), the flattened gradient within rtol 1e-4 / atol
   1e-6, ``remat`` on and off bitwise in the port, ``loss_chunk`` within
   1e-6 relative of the unchunked loss, and the bfloat16 loss within 1e-3
-  relative (measured: at most 3.7e-4, qwen2-vl; the two packages round
-  their bfloat16 products and casts differently).
+  relative (measured: at most 5.6e-4, rwkv6; the two packages round
+  their bfloat16 products and casts differently).  Two gradients cancel
+  below the absolute bar in a few entries (ROADMAP §3): zamba2's (the SSD
+  turns the products' last-bit differences into ~1e-5 relative ones in its
+  decays) and rwkv6's (the bonus ``u`` sums ~100-sized terms to 0.05, and
+  the reference's own remat on and off differ there by 9e-5).  There the
+  bar is ``GRAD_GAPS``: a count of entries that may leave it, each within a
+  stated multiple of its leaf's largest magnitude.
 
-The MoE, Mamba2, RWKV6 and hybrid archs raise ``NotImplementedError``.
+``init_cache`` raises for every arch: the decode states are the serve
+slice's.
 """
 import dataclasses
 
@@ -47,12 +57,34 @@ ATTN_ARCHS = ("smollm_360m", "qwen3_8b", "yi_34b", "mistral_large_123b",
 OTHER_ARCHS = ("zamba2_7b", "granite_moe_1b_a400m", "granite_moe_3b_a800m",
                "rwkv6_3b")
 ALL_CONFIGS = tbase.ARCH_IDS + ("mnist_mlp",)
+#: the parity cases: each arch's reduced config, and zamba2 with a tail
+TAIL = "zamba2_7b+tail"
+CASES = ATTN_ARCHS + OTHER_ARCHS + (TAIL,)
 
 F32_LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 CHUNK_RTOL = 1e-6
-#: measured: 3.7e-4 at most (qwen2_vl_7b), 1e-5 to 1.2e-4 elsewhere
+#: measured: 5.6e-4 at most (rwkv6_3b), 3.7e-4 qwen2_vl_7b, 1e-5 to 1.2e-4
+#: elsewhere
 BF16_LOSS_RTOL = 1e-3
+#: per arch: how many gradient entries may leave rtol 1e-4 / atol 1e-6
+#: (None: any), each then within the given multiple of its leaf's largest
+#: magnitude.  Measured: rwkv6 3 of 470 400 entries, at most 1.0e-6 of the
+#: leaf's scale (``u``; the card against the CPU port: 5, 3.1e-6); zamba2 31
+#: of 505 520 (1.1e-5, ``embed``; the card: 24, 7.8e-6) and with a tail 864
+#: of 1 139 568 (2.6e-5, ``embed``); 0 for the other archs.
+GRAD_GAPS = {"rwkv6_3b": (8, 5e-6), "zamba2_7b": (None, 5e-5),
+             TAIL: (None, 5e-5)}
+
+
+def _cfgs(case):
+    """The reference's and the port's config of a parity case."""
+    arch = case.split("+")[0]
+    jc, tc = jbase.get_config(arch).reduced(), tbase.get_config(arch).reduced()
+    if case == TAIL:
+        jc = dataclasses.replace(jc, n_layers=5)
+        tc = dataclasses.replace(tc, n_layers=5)
+    return jc, tc
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -155,10 +187,10 @@ def test_truncated_normal_stacked_keys_bitwise():
 
 @pytest.fixture(scope="module")
 def ref_params():
-    """The reference's params of each reduced attention-family config."""
-    return {a: jax.device_get(jmodel.init_params(
-        jbase.get_config(a).reduced(), jax.random.PRNGKey(0)))
-        for a in ATTN_ARCHS}
+    """The reference's params of each parity case."""
+    return {a: jax.device_get(jmodel.init_params(_cfgs(a)[0],
+                                                 jax.random.PRNGKey(0)))
+            for a in CASES}
 
 
 def _paths(tree, prefix=()):
@@ -167,9 +199,9 @@ def _paths(tree, prefix=()):
     return [prefix]
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_ravel_meta_order_equals_ravel_pytree(ref_params, arch):
-    cfg = tbase.get_config(arch).reduced()
+    cfg = _cfgs(arch)[1]
     aparams = abstract_params(cfg)
     d, unravel = ravel_meta(aparams)
     want = ref_params[arch]
@@ -196,10 +228,26 @@ def test_ravel_meta_full_width_smollm():
     assert d == 361_821_120
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_abstract_params_full_width_equal_eval_shape(arch):
+    """The published widths' param tree from shapes alone, leaf for leaf
+    the reference's ``jax.eval_shape`` of its init, and nothing allocated."""
+    cfg = tbase.get_config(arch)
+    aparams = abstract_params(cfg)
+    want = jax.eval_shape(lambda k: jmodel.init_params(
+        jbase.get_config(arch), k), jax.random.PRNGKey(0))
+    assert _paths(aparams) == [tuple(k.key for k in p) for p, _ in
+                               jax.tree_util.tree_flatten_with_path(want)[0]]
+    assert [tuple(x.shape) for x in tree_leaves(aparams)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(want)]
+    assert all(x.device.type == "meta" for x in tree_leaves(aparams))
+    assert ravel_meta(aparams)[0] == sum(x.size for x in
+                                         jax.tree.leaves(want))
+
+
+@pytest.mark.parametrize("arch", CASES)
 def test_init_params_bitwise(ref_params, arch):
-    got = tmodel.init_params(tbase.get_config(arch).reduced(),
-                             rng.PRNGKey(0, device="cpu"))
+    got = tmodel.init_params(_cfgs(arch)[1], rng.PRNGKey(0, device="cpu"))
     want = ref_params[arch]
     assert _paths(got) == [tuple(k.key for k in p) for p, _ in
                            jax.tree_util.tree_flatten_with_path(want)[0]]
@@ -233,10 +281,10 @@ def _batch(cfg, seed, B=2, L=12):
 @pytest.fixture(scope="module")
 def ref_losses(ref_params):
     """The reference under ``jit``: the float32 loss and gradient (remat
-    on) and the bfloat16 loss, per reduced attention-family config."""
+    on) and the bfloat16 loss, per parity case."""
     out = {}
-    for a in ATTN_ARCHS:
-        cfg = jbase.get_config(a).reduced()
+    for a in CASES:
+        cfg = _cfgs(a)[0]
         p, b = ref_params[a], _batch(cfg, 1)
         l32, g = jax.jit(jax.value_and_grad(lambda p: jmodel.loss_fn(
             p, cfg, b, compute_dtype=jnp.float32, remat=True)[0]))(p)
@@ -248,7 +296,7 @@ def ref_losses(ref_params):
 
 
 def _port_loss(arch, params, batch, dtype=torch.float32, **kw):
-    cfg = tbase.get_config(arch).reduced()
+    cfg = _cfgs(arch)[1]
     return tmodel.loss_fn(params, cfg, to_torch(batch, "cpu"),
                           compute_dtype=dtype, **kw)
 
@@ -261,28 +309,55 @@ def _port_grad(arch, ref_params, batch, remat):
     return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_loss_f32_matches_reference(ref_params, ref_losses, arch):
     want = ref_losses[arch]
     loss, met = _port_loss(arch, to_torch(ref_params[arch], "cpu"),
                            want["batch"], remat=False)
     np.testing.assert_allclose(float(loss), want["loss"]["float32"],
                                rtol=F32_LOSS_RTOL)
-    assert float(met["aux"]) == 0.0 and float(met["loss"]) == float(loss)
+    if _cfgs(arch)[1].moe is None:
+        assert float(met["aux"]) == 0.0 and float(met["loss"]) == float(loss)
+    else:
+        jc = _cfgs(arch)[0]
+        _, jmet = jax.jit(lambda p: jmodel.loss_fn(
+            p, jc, want["batch"], compute_dtype=jnp.float32,
+            remat=False))(ref_params[arch])
+        np.testing.assert_allclose(float(met["aux"]), float(jmet["aux"]),
+                                   rtol=F32_LOSS_RTOL)
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=F32_LOSS_RTOL)
+        assert float(met["aux"]) > 0
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def _assert_grad_close(arch, ref_params, got, want):
+    """rtol 1e-4 / atol 1e-6, or the arch's ``GRAD_GAPS``."""
+    if arch not in GRAD_GAPS:
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        return
+    count, scale_atol = GRAD_GAPS[arch]
+    out = np.abs(got - want) > GRAD_ATOL + GRAD_RTOL * np.abs(want)
+    assert count is None or out.sum() <= count, int(out.sum())
+    off = 0
+    for leaf in jax.tree.leaves(ref_params[arch]):
+        w, g = want[off:off + leaf.size], got[off:off + leaf.size]
+        np.testing.assert_allclose(
+            g, w, rtol=GRAD_RTOL,
+            atol=max(GRAD_ATOL, scale_atol * np.abs(w).max()))
+        off += leaf.size
+
+
+@pytest.mark.parametrize("arch", CASES)
 def test_grad_f32_matches_reference_and_remat_is_exact(ref_params,
                                                        ref_losses, arch):
     want = ref_losses[arch]
     l_on, g_on = _port_grad(arch, ref_params[arch], want["batch"], True)
     l_off, g_off = _port_grad(arch, ref_params[arch], want["batch"], False)
-    np.testing.assert_allclose(g_on.numpy(), want["grad"], rtol=GRAD_RTOL,
-                               atol=GRAD_ATOL)
+    _assert_grad_close(arch, ref_params, g_on.numpy(), want["grad"])
     assert torch.equal(l_on, l_off) and torch.equal(g_on, g_off)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_loss_chunk_equals_unchunked(ref_params, ref_losses, arch):
     params = to_torch(ref_params[arch], "cpu")
     batch = ref_losses[arch]["batch"]
@@ -292,7 +367,7 @@ def test_loss_chunk_equals_unchunked(ref_params, ref_losses, arch):
         np.testing.assert_allclose(float(part), float(whole), rtol=CHUNK_RTOL)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_loss_bf16_matches_reference(ref_params, ref_losses, arch):
     loss, _ = _port_loss(arch, to_torch(ref_params[arch], "cpu"),
                          ref_losses[arch]["batch"], dtype=torch.bfloat16,
@@ -339,16 +414,48 @@ def test_optimizer_on_nested_params_matches_reference(ref_params):
 
 
 # ---------------------------------------------------------------------------
-# the next slice's blocks
+# the decode states: the serve slice's
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_non_attention_archs_raise(arch):
+@pytest.mark.parametrize("arch", tbase.ARCH_IDS)
+def test_init_cache_raises_naming_the_serve_slice(arch):
     cfg = tbase.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tmodel.init_params(cfg, rng.PRNGKey(0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        abstract_params(cfg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        transformer.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="serve"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(NotImplementedError, match="serve"):
+        transformer.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                            cache={})
+
+
+def test_hybrid_shared_block_runs_n_layers_over_every_times(monkeypatch):
+    """zamba2 with 5 layers and every 2: the shared block twice, after
+    layers 2 and 4, and layer 5 as the tail; a Mamba2 layer is
+    rematerialised, the shared block is not."""
+    cfg = _cfgs(TAIL)[1]
+    params = tmodel.init_params(cfg, rng.PRNGKey(0, device="cpu"))
+    calls = []
+    apply_block, shared = transformer.apply_block, \
+        transformer._apply_shared_attn
+
+    def spy_block(*a, **kw):
+        calls.append("mamba")
+        return apply_block(*a, **kw)
+
+    def spy_shared(*a, **kw):
+        calls.append("shared")
+        return shared(*a, **kw)
+
+    monkeypatch.setattr(transformer, "apply_block", spy_block)
+    monkeypatch.setattr(transformer, "_apply_shared_attn", spy_shared)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    transformer.forward(params, cfg, toks, compute_dtype=torch.float32)
+    assert calls == ["mamba", "mamba", "shared", "mamba", "mamba", "shared",
+                     "mamba"]
+    calls.clear()
+    p = tree_map(lambda a: a.requires_grad_(True), params)
+    out, _, _ = transformer.forward(p, cfg, toks, compute_dtype=torch.float32,
+                                    remat=True)
+    out.sum().backward()
+    # backward recomputes each of the five Mamba2 layers once
+    assert calls.count("mamba") == 10 and calls.count("shared") == 2
