@@ -184,7 +184,27 @@ Phases, one JSON line each:
             2 x 16 tokens) of rwkv6-3b at 2 layers and of zamba2-7b at 7
             (6 Mamba2 layers, the shared block once, one tail layer), at
             their published widths: finite, ms and peak memory;
-15. benchmarks
+15. serve    (a) ``serve_while_train`` on smollm-360m at its published
+            widths with the fedllm phase's training settings (m = 4, 2 x
+            16 tokens, chunks of 2**22, ``use_kernel``): 2 rounds, and
+            between them a batch of 8 requests (a 16-token prompt, 16
+            greedy tokens) in ``make_serve_step``'s defaults (bfloat16
+            compute and caches): ms per round, of publish, of the prefill
+            and per decoded token, tokens a second while training, peak
+            memory, 87 launches of each main-path kernel a round and 0 of
+            ``ota_project_t`` (the decode launches none), ``publish_bitwise``,
+            the first chunks of a further round bitwise the plain run, and
+            a float32 decode batch from the last round's params on the
+            card and on the CPU port, fed the same tokens: logits within
+            1e-5 of their largest magnitude, the same greedy tokens; (b)
+            bfloat16 decoding alone at full depth and published widths on
+            seeded weights (layer 0 from the model's init, every other
+            layer a seeded shuffle of its entries): rwkv6-3b
+            (32 layers), zamba2-7b (81 layers, 13 shared attention caches)
+            and whisper-base (the encoder over its 1500 frames), batch 4,
+            a 16-token prefill and 16 tokens: ms per token, peak memory,
+            finite logits;
+16. benchmarks
             the port's benchmark scripts (``repro_torch.benchmarks``): (a)
             ``bench_kernels`` at its full sizes (64 x 1024 -> 256, 10 AMP
             iterations; 256 x 4096 -> 1024, 20), every kernel path within
@@ -201,7 +221,7 @@ Phases, one JSON line each:
             ``BENCH_torch_sweeps.json`` at the checkout's root; beside each
             projection row, one ``torch.bmm`` on A materialised beforehand
             (``library_ms`` per call, ``library_graph_ms`` by replay);
-16. kernels the per-kernel record: route, source, the TPU kernel it
+17. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
@@ -213,7 +233,7 @@ chunk time with fewer repetitions: a call takes tens of ms).
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
 population, each run of sharded, fedllm's and fedllm_moe's timed rounds,
-bench_kernels) runs with every launch count set to 0 just before it and read just after.
+serve's rounds, bench_kernels) runs with every launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -280,6 +300,7 @@ KERNEL_PATH = {"ef_sparsify": "slice", "ota_project": "slice",
 PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "fedllm": ("ef_sparsify", "ota_project", "amp_fused"),
                 "fedllm_moe": ("ef_sparsify", "ota_project", "amp_fused"),
+                "serve": ("ef_sparsify", "ota_project", "amp_fused"),
                 "unfused_decode": ("ota_project", "ota_project_t"),
                 "engine": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sweep": ("ef_sparsify", "ota_project", "amp_fused"),
@@ -356,6 +377,14 @@ MOE_ARCH, MOE_LAYERS = "granite_moe_1b_a400m", 16
 MOE_D, MOE_CHUNKS, MOE_ROUNDS = 906_530_816, 217, 1
 #: one device's loss and gradient at published widths, depth cut
 WIDE_DEPTHS = (("rwkv6_3b", 2), ("zamba2_7b", 7))
+#: the serve phase: the fedllm phase's training, and between its rounds a
+#: batch of requests of a prompt and greedy tokens; the float32 batch's bar
+#: against the CPU port (tests/test_torch_serve.py's float32 bar)
+SERVE_ROUNDS, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 8, 16, 16
+SERVE_F32_BAR = 1e-5
+#: decoding alone at full depth: the archs, batch, prompt and tokens
+SERVE_WIDE = ("rwkv6_3b", "zamba2_7b", "whisper_base")
+SERVE_WIDE_BATCH = 4
 
 
 class CheckFailed(RuntimeError):
@@ -2538,6 +2567,285 @@ def run_fedllm_moe_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: serve while training, and decoding alone at full depth
+# ---------------------------------------------------------------------------
+
+
+def serve_f32_against_cpu(arch, params, device) -> dict:
+    """A float32 batch from ``params`` on the card and on the CPU port: a
+    seeded prompt, then greedy tokens, both sides fed the card's tokens.
+    The logits within ``SERVE_F32_BAR`` of their largest magnitude and
+    the same greedy token at every step."""
+    import torch
+    from repro_torch.convert import tree_map
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.serve import make_serve_step
+
+    n = SERVE_PROMPT + SERVE_TOKENS
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, arch.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, dtype=torch.int32)
+    sides = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        s = make_serve_step(arch, make_local_mesh(), SERVE_BATCH, n,
+                            compute_dtype=torch.float32,
+                            cache_dtype=torch.float32, device=dev)
+        p = params if name == "card" else tree_map(lambda a: a.cpu(), params)
+        sides[name] = [s, p, s.init_cache(torch.float32)]
+    worst, same, tok = 0.0, True, None
+    t0 = time.perf_counter()
+    for i in range(SERVE_TOKENS + 1):
+        logits = {}
+        for name, side in sides.items():
+            s, p, cache = side
+            if i == 0:
+                lg, side[2] = s.prefill_fn(p, cache, prompt.to(s.device))
+            else:
+                lg, side[2] = s.decode_fn(p, cache, tok.to(s.device),
+                                          SERVE_PROMPT + i - 1)
+            logits[name] = lg[:, -1].cpu()
+        want = logits["cpu"]
+        worst = max(worst, float((logits["card"] - want).abs().max()
+                                 / want.abs().max()))
+        tok = torch.argmax(logits["card"], -1)[:, None].to(torch.int32)
+        same = same and torch.equal(tok[:, 0], torch.argmax(want, -1).to(
+            torch.int32))
+    check(worst <= SERVE_F32_BAR and same,
+          f"serve float32: the card's logits {worst:.3e} of their largest "
+          f"magnitude from the CPU port's (bar {SERVE_F32_BAR}), same greedy "
+          f"tokens {same}")
+    return dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, tokens=SERVE_TOKENS,
+                max_rel_err=worst, bar=SERVE_F32_BAR, same_tokens=same,
+                seconds=time.perf_counter() - t0)
+
+
+def decode_busy_share(arch, params, device, steps: int = 4) -> dict:
+    """The device's busy share while the serve batch decodes: the kernels'
+    device time in a ``torch.profiler`` trace of ``steps`` bfloat16 decode
+    steps over the host's time for them.  "not measured" where the trace
+    holds no device time."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.serve import make_serve_step
+
+    s = make_serve_step(arch, make_local_mesh(), SERVE_BATCH,
+                        SERVE_PROMPT + steps, device=device)
+    prompt = torch.zeros((SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32,
+                         device=device)
+    lg, cache = s.prefill_fn(params, s.init_cache(), prompt)
+    tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lg, cache = s.decode_fn(params, cache, tok, SERVE_PROMPT + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        device_us = sum(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0))
+                        for e in events)
+        kernels = sum(e.count for e in events
+                      if getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) > 0)
+    except Exception as exc:           # CUPTI may be unavailable here
+        return dict(steps=steps, busy_share="not measured",
+                    error=repr(exc)[:200])
+    if device_us <= 0:
+        return dict(steps=steps, busy_share="not measured",
+                    wall_ms=wall_ms)
+    top = sorted(events, key=lambda e: -getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    return dict(steps=steps, wall_ms=wall_ms,
+                device_ms=device_us / 1e3, busy_share=device_us / 1e3
+                / wall_ms, device_ops_per_step=kernels / steps,
+                top=[(e.key[:60], getattr(e, "self_device_time_total",
+                                          getattr(e, "self_cuda_time_total",
+                                                  0)) / 1e3 / steps)
+                     for e in top[:6]])
+
+
+def seeded_params(cfg, device):
+    """Seeded weights at published widths: a one-layer copy's params (the
+    embedding, the head, the shared and encoder blocks, decoder layer 0)
+    and every other decoder layer a seeded shuffle of layer 0's entries,
+    leaf by leaf, so each leaf keeps its init's distribution.  Drawing the
+    whole stack from the model's keys would hold int64 words for every
+    entry of a leaf (17 GB of bits for zamba2's in-projection alone) and
+    takes ~36 s for zamba2 a layer at a time."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.convert import tree_map
+    from repro_torch.models import model as model_lib
+
+    params = model_lib.init_params(dataclasses.replace(cfg, n_layers=1),
+                                   rng.PRNGKey(0, device=device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+
+    def stack(one):
+        flat = one.reshape(-1)
+        out = torch.empty((cfg.n_layers,) + tuple(one.shape[1:]),
+                          dtype=one.dtype, device=device)
+        out[0] = one[0]
+        for i in range(1, cfg.n_layers):
+            out[i] = flat[torch.randperm(flat.numel(), generator=gen,
+                                         device=device)].view(one.shape[1:])
+        return out
+
+    params["blocks"] = tree_map(stack, params["blocks"])
+    return params
+
+
+def serve_wide(device, arch_id: str) -> dict:
+    """bfloat16 decoding of a zoo model at full depth and published widths:
+    a prefill of a seeded prompt and greedy tokens, ms per token by CUDA
+    events, peak memory, finite logits."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import make_serve_step
+
+    free_device_memory()
+    cfg = get_config(arch_id)
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model_lib.param_count(params)
+    b = SERVE_WIDE_BATCH
+    s = make_serve_step(cfg, make_local_mesh(), b,
+                        SERVE_PROMPT + SERVE_TOKENS, device=device)
+    key = rng.PRNGKey(2, device=device)
+    prompt = rng.randint(key, (b, SERVE_PROMPT), 0, cfg.vocab)
+    enc, enc_ms = (), None
+    if cfg.encoder is not None:
+        frames = rng.normal_scaled(
+            key, (b, cfg.encoder.n_frames, cfg.encoder.d_model), 0.02)
+        (out,), enc_ms = _events_ms(lambda: (transformer.encode_audio(
+            params, cfg, frames.to(torch.bfloat16)),))
+        enc = (out,)
+    # a one-step warm-up, then the measured request
+    s.decode_fn(params, s.init_cache(), prompt[:, :1], 0, *enc)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    (lg, cache), prefill_ms = _events_ms(
+        lambda: s.prefill_fn(params, s.init_cache(), prompt, *enc))
+    finite = bool(torch.isfinite(lg).all())
+    toks = []
+
+    def decode():
+        nonlocal lg, cache
+        for i in range(SERVE_TOKENS):
+            tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tok)
+            lg, cache = s.decode_fn(params, cache, tok, SERVE_PROMPT + i,
+                                    *enc)
+        return bool(torch.isfinite(lg).all())
+
+    finite_decode, decode_ms = _events_ms(decode)
+    peak = torch.cuda.max_memory_allocated()
+    check(finite and finite_decode, f"serve {arch_id}: non-finite logits")
+    cache_bytes = sum(leaf.numel() * leaf.element_size()
+                      for leaf in tree_leaves(cache))
+    out = dict(arch=arch_id, n_layers=cfg.n_layers, params=n_params,
+               batch=b, prompt=SERVE_PROMPT, tokens=SERVE_TOKENS,
+               init_s=init_s, encode_ms=enc_ms, prefill_ms=prefill_ms,
+               ms_per_prefill_token=prefill_ms / SERVE_PROMPT,
+               ms_per_token=decode_ms / SERVE_TOKENS,
+               cache_bytes=cache_bytes, peak_allocated_gb=peak / 1e9,
+               finite=True, sample=torch.cat(toks, 1)[0, :8].tolist())
+    del params, cache, lg, enc
+    free_device_memory()
+    return out
+
+
+def run_serve_phase(device) -> dict:
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.experiments.engine import round_keys
+    from repro_torch.kernels import ops
+    from repro_torch.train import fedllm
+
+    free_device_memory()
+    arch = get_config(FEDLLM_ARCH)
+    ota = dataclasses.replace(ota_overrides(FEDLLM_ARCH), use_kernel=True)
+    train_cfg = TrainConfig()
+    kw = dict(m=FEDLLM_M, batch=FEDLLM_BATCH, seq_len=FEDLLM_SEQ, seed=0,
+              chunk_size=FEDLLM_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fedllm.serve_while_train(
+        arch, rounds=SERVE_ROUNDS, ota=ota, train_cfg=train_cfg,
+        serve_batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        decode_steps=SERVE_TOKENS, device=device, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ef_sparsify": FEDLLM_CHUNKS * SERVE_ROUNDS,
+            "ota_project": FEDLLM_CHUNKS * SERVE_ROUNDS, "ota_project_t": 0,
+            "amp_fused": FEDLLM_CHUNKS * SERVE_ROUNDS}
+    check(launches == want, f"serve (a): launches {launches}, expected {want}")
+    check(out["publish_bitwise"], "serve (a): the served params differ from "
+          "the decoded globals")
+    losses = [float(x) for x in out["losses"]]
+    check(all(map(math.isfinite, losses)), f"serve (a): losses {losses}")
+    served = [t.tolist() for t in out["served_tokens"]]
+    check(all(len(t) == SERVE_BATCH and len(t[0]) == SERVE_TOKENS
+              for t in served), "serve (a): served token shapes")
+    secs = out["seconds"]
+    served_tokens = SERVE_ROUNDS * SERVE_BATCH * (SERVE_PROMPT + SERVE_TOKENS)
+
+    # the first chunks of a further round, on the trained params: bitwise
+    # the plain run and the per-chunk loop
+    fed = fedllm.CompiledFedLLM(arch, train_cfg, ota, device=device, **kw)
+    t = SERVE_ROUNDS
+    key = round_keys(t + 1, 0, device=device)[t]
+    gflat, _ = fed._grads(out["params"], key)
+    gch = gflat.view(fed.m, fed.n_chunks, fed.chunk_len).transpose(0, 1)
+    deltas = torch.zeros((FEDLLM_PLAIN_CHUNKS, fed.m, fed.chunk_len),
+                         device=device)
+    plain_ms = _first_chunks_bitwise(fed, ota, gch, deltas, t, key, device,
+                                     "serve (a)")
+    del gflat, gch, deltas
+    free_device_memory()
+
+    busy = decode_busy_share(arch, out["params"], device)
+    # a float32 batch from the last round's params, card against CPU
+    f32 = serve_f32_against_cpu(arch, out["params"], device)
+    del out["params"]
+    free_device_memory()
+
+    wide = [serve_wide(device, a) for a in SERVE_WIDE]
+    ms = lambda k: [x[k] * 1e3 for x in secs]      # noqa: E731
+    return dict(
+        phase="serve", arch=FEDLLM_ARCH, d=fed.d, m=fed.m,
+        batch=FEDLLM_BATCH, seq_len=FEDLLM_SEQ, chunk_size=FEDLLM_CHUNK,
+        n_chunks=fed.n_chunks, rounds=SERVE_ROUNDS,
+        serve_batch=SERVE_BATCH, prompt=SERVE_PROMPT, tokens=SERVE_TOKENS,
+        compute_dtype="bfloat16", cache_dtype="bfloat16",
+        ms_per_round=ms("train"), publish_ms=ms("publish"),
+        prefill_ms=ms("prefill"),
+        ms_per_token=[x["decode"] * 1e3 / SERVE_TOKENS for x in secs],
+        wall_s=wall_s, tokens_per_s_while_training=served_tokens / wall_s,
+        peak_allocated_gb=peak / 1e9, losses=losses, launches=launches,
+        launches_per_round={k: v // SERVE_ROUNDS for k, v in launches.items()},
+        publish_bitwise=True, served_sample=[t[0] for t in served],
+        first_chunks_vs_plain="bitwise", first_chunks_vs_ref="bitwise",
+        plain_chunks=FEDLLM_PLAIN_CHUNKS, plain_ms_for_chunks=plain_ms,
+        decode_trace=busy, float32_vs_cpu=f32, wide=wide)
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the benchmarks (repro_torch.benchmarks)
 # ---------------------------------------------------------------------------
 
@@ -2818,6 +3126,8 @@ def main() -> int:
     emit(fl)
     fm = run_fedllm_moe_phase(device)
     emit(fm)
+    sv = run_serve_phase(device)
+    emit(sv)
     bm = run_benchmarks_phase(device)
     emit(bm)
 
@@ -2826,7 +3136,8 @@ def main() -> int:
              "channel": ch["launches"], "robust": rb["launches"],
              "local": lo["launches"], "population": po["launches"],
              "sharded": sd["launches"], "fedllm": fl["launches"],
-             "fedllm_moe": fm["launches"], "benchmarks": bm["launches"]}
+             "fedllm_moe": fm["launches"], "serve": sv["launches"],
+             "benchmarks": bm["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]

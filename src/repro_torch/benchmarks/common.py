@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import os
 import subprocess
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -30,7 +29,7 @@ import torch
 from repro_torch.configs.base import OTAConfig
 from repro_torch.core.schemes import PAPER_SCHEMES, SCHEME_REGISTRY  # noqa: F401
 from repro_torch.data.synthetic import federated_split, make_classification
-from repro_torch.device import resolve_device
+from repro_torch.device import clock, resolve_device
 from repro_torch.train.paper_repro import run_federated
 
 FULL = bool(int(os.environ.get("FULL", "0")))
@@ -54,14 +53,6 @@ class Scale:
 
 
 SCALE = Scale()
-
-
-def clock(device) -> float:
-    """The host's clock in seconds, read once ``device``'s queue has
-    drained."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 def device_info(device) -> Dict[str, Optional[str]]:

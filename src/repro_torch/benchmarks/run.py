@@ -1,11 +1,11 @@
 """Benchmark entry point: one harness per paper figure, the Theorem 1
-bound, and the kernel and sweep benchmarks, on the port.
+bound, and the kernel, sweep and streamed-LLM benchmarks, on the port.
 
 Prints a ``name,us_per_call,derived`` CSV summary at the end (derived =
 final test accuracy for the figure benchmarks).  ``FULL=1`` in the
 environment restores the paper-scale settings.
 
-Run:  python -m repro_torch.benchmarks.run [fig2|...|fig13|thm1|kernels|sweeps]
+Run:  python -m repro_torch.benchmarks.run [fig2|...|fig13|thm1|kernels|sweeps|llm]
 """
 from __future__ import annotations
 
@@ -15,8 +15,9 @@ import time
 
 def main(device=None) -> None:
     from repro_torch.benchmarks import (
-        bench_kernels, bench_sweeps, convergence_bound, fig2_schemes,
-        fig3_power_alloc, fig4_power_sweep, fig5_bandwidth, fig6_devices,
+        bench_kernels, bench_llm, bench_sweeps, convergence_bound,
+        fig2_schemes, fig3_power_alloc, fig4_power_sweep, fig5_bandwidth,
+        fig6_devices,
         fig7_s_tradeoff, fig8_bias, fig9_fading, fig10_scaling, fig11_robust,
         fig12_local, fig13_geometry,
     )
@@ -37,6 +38,7 @@ def main(device=None) -> None:
         "thm1": convergence_bound.main,
         "kernels": bench_kernels.main,
         "sweeps": bench_sweeps.main,
+        "llm": bench_llm.main,
     }
     if only is not None and only not in benches:
         raise SystemExit(f"unknown benchmark {only!r}; one of "

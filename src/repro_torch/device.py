@@ -6,6 +6,8 @@ callers ask for ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -26,6 +28,14 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def clock(device) -> float:
+    """The host's clock in seconds, read once ``device``'s queue has
+    drained (torch returns before the card finishes)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def div_f32(t: torch.Tensor, n) -> torch.Tensor:

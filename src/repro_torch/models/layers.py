@@ -12,8 +12,9 @@ scores are taken to float32 before the scale and the additive mask
 (``-1e30``), and the probabilities go back to the activations' dtype.
 Attention stays plain torch, as the reference computes it outside any
 Pallas kernel; ``scaled_dot_product_attention`` would change those
-numerics.  The KV-cache branch of :func:`attention` (decode) is the serve
-path's and raises until that slice is ported.
+numerics.  The KV-cache branch of :func:`attention` (decode) writes the
+new keys and values into the cache in place and attends over the whole
+cache.
 """
 from __future__ import annotations
 
@@ -179,14 +180,14 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     """GQA attention.
 
     x: (B, L, D).  positions: (B, L) (or (B, L, 3) for M-RoPE).
+    kv_cache: {"k","v": (B, C, Hkv, Dh), "pos": (B, C) int32} -- decode
+      mode: the L new K/V entries and their absolute positions are written
+      at slot ``cache_index`` (a python int) and attention runs over the
+      whole cache.  The cache's tensors are updated in place (the reference
+      donates them) and returned as the new cache.
     kv_source: cross-attention source (B, Lsrc, D) (whisper decoder).
-    Returns (out, None).  ``kv_cache`` (decode) is the serve slice's and
-    raises.
+    Returns (out, new_kv_cache|None).
     """
-    if kv_cache is not None:
-        raise NotImplementedError(
-            "attention with a KV cache is the serve path's; it is ported "
-            "with train/serve.py")
     B, L, _ = x.shape
     h, hq, hkv = spec.head_dim, spec.n_heads, spec.n_kv_heads
     q = (x @ p["wq"].to(x.dtype)).reshape(B, L, hq, h)
@@ -196,6 +197,7 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     if spec.qk_norm:
         q = rms_norm(q, p["q_norm"], spec.norm_eps)
         k = rms_norm(k, p["k_norm"], spec.norm_eps)
+    new_cache = None
     if kv_source is None:  # no rope on cross-attention
         kpos = kv_positions if kv_positions is not None else positions
         if spec.mrope_sections is not None:
@@ -207,8 +209,17 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
             q = apply_rope(q, positions, spec.rope_theta)
             k = apply_rope(k, kpos, spec.rope_theta)
             q_pos1 = positions
-        k_pos = kv_positions if kv_positions is not None else q_pos1
-        bias = _mask_bias(q_pos1, k_pos, spec.causal, spec.sliding_window)
+        if kv_cache is not None:
+            new_cache = _cache_write(kv_cache, k, v, q_pos1, cache_index)
+            k = new_cache["k"].to(x.dtype)
+            v = new_cache["v"].to(x.dtype)
+            cpos = new_cache["pos"]
+            bias = _mask_bias(q_pos1, cpos, spec.causal, spec.sliding_window,
+                              cpos >= 0)
+        else:
+            k_pos = kv_positions if kv_positions is not None else q_pos1
+            bias = _mask_bias(q_pos1, k_pos, spec.causal,
+                              spec.sliding_window)
     else:
         q_pos1 = positions if positions.dim() == 2 else positions[..., 0]
         k_pos = torch.arange(src.shape[1], device=x.device)[None, :].expand(
@@ -224,7 +235,24 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bklgm,bmkh->blkgh", probs, v)
     out = out.reshape(B, L, hq * h)
-    return out @ p["wo"].to(x.dtype), None
+    return out @ p["wo"].to(x.dtype), new_cache
+
+
+def _cache_write(kv_cache: Params, k, v, q_pos1, cache_index) -> Params:
+    """Write L new entries at slot ``cache_index`` of a (B, C, ...) cache.
+
+    ``jax.lax.dynamic_update_slice_in_dim`` clamps its start into
+    ``[0, C - L]``, so a write past the end of a full cache lands on its
+    last slots; the same clamp here.  K and V are cast to the cache's
+    dtype, the positions to int32.
+    """
+    ck, cv, cpos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+    L, C = k.shape[1], ck.shape[1]
+    i = min(max(int(cache_index), 0), C - L)
+    ck[:, i:i + L] = k.to(ck.dtype)
+    cv[:, i:i + L] = v.to(cv.dtype)
+    cpos[:, i:i + L] = q_pos1.to(cpos.dtype)
+    return {"k": ck, "v": cv, "pos": cpos}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Public model API: init and the train forward (loss).
+"""Public model API: init / train forward (loss) / serve decode step.
 
 The port of the reference's ``repro/models/model.py``.  ``Batch`` covers
 every modality the zoo's families take:
@@ -7,13 +7,10 @@ every modality the zoo's families take:
   positions (B, L[,3]) int32     — optional (M-RoPE needs 3-D)
   extra     (B, P, D) float      — stub frontend embeddings (vlm)
   frames    (B, F, D_enc) float  — stub audio frames (whisper encoder input)
-
-``decode_step`` and ``init_decode_cache`` are the serve path's and come
-with that slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -77,6 +74,40 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux,
                    "ppl": torch.exp(torch.clamp(loss, 0, 20.0))}
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16,
+                      decode_window: Optional[int] = None,
+                      device=None) -> Params:
+    return transformer.init_cache(cfg, batch, max_len, dtype, decode_window,
+                                  device=device)
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
+                cache: Params, pos: int, *,
+                enc_out: Optional[torch.Tensor] = None,
+                compute_dtype=torch.bfloat16,
+                decode_window: Optional[int] = None):
+    """One-token decode. token: (B, 1) int32; pos: the current position (a
+    python int).
+
+    Returns (logits (B, 1, V) float32, new_cache).  ``cache_index`` is pos
+    for full caches, pos % window for ring-buffer (sliding-window) caches.
+    ``cache`` is consumed: its KV caches are written in place.
+    """
+    pos = int(pos)
+    cache_index = pos % decode_window if decode_window is not None else pos
+    B = token.shape[0]
+    pos1 = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
+    positions = (pos1[..., None].expand(B, 1, 3)
+                 if cfg.mrope_sections is not None else pos1)
+    logits, new_cache, _ = transformer.forward(
+        params, cfg, token, positions=positions, enc_out=enc_out,
+        cache=cache, cache_index=cache_index, compute_dtype=compute_dtype,
+        remat=False, decode_window=decode_window)
+    return logits, new_cache
 
 
 def param_count(params: Params) -> int:

@@ -21,8 +21,11 @@ leaves ``(n_layers, ...)`` are unbound once per forward and the layers run
 in a loop.  ``remat`` (``jax.checkpoint``) becomes
 ``torch.utils.checkpoint`` per block, with the same values; in the hybrid
 stack only the Mamba2 layers are rematerialised, as in the reference.
-The decode caches (:func:`init_cache`, ``cache=`` of :func:`forward`)
-raise: they are the serve slice's.
+Decode (``cache=`` of :func:`forward`) carries one state per layer,
+stacked over the layers as :func:`init_cache` builds it: the KV caches
+(``{"kv"}``, written in place), Mamba2's and RWKV-6's recurrent states
+(new tensors each step, in the dtypes the reference's blocks give them)
+and zamba2's ``{"mamba", "shared"}``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 from repro_torch.configs.base import ATTN, MAMBA2, MOE, RWKV6, SWA, ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -43,12 +47,6 @@ from repro_torch.models.layers import (
 )
 
 Params = Dict[str, Any]
-
-
-def _no_cache():
-    return NotImplementedError(
-        "decode caches are the serve path's; they are ported with "
-        "train/serve.py")
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +164,15 @@ def apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                 positions, cache=None, cache_index=None, enc_out=None,
                 decode_window: Optional[int] = None):
     """One decoder block. Returns (x, new_cache, aux_loss)."""
-    if cache is not None:
-        raise _no_cache()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in (ATTN, SWA, MOE):
         spec = attn_spec(cfg, sliding=(kind == SWA
                                        or cfg.sliding_window is not None),
                          decode_window=decode_window)
-        h, _ = attention(p["attn"], spec,
-                         rms_norm(x, p["ln1"], cfg.norm_eps), positions)
+        h, kv = attention(p["attn"], spec,
+                          rms_norm(x, p["ln1"], cfg.norm_eps), positions,
+                          kv_cache=None if cache is None else cache["kv"],
+                          cache_index=cache_index)
         x = x + h
         if enc_out is not None:   # whisper decoder cross-attention
             hx, _ = attention(p["xattn"], attn_spec(cfg, causal=False),
@@ -188,30 +186,38 @@ def apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
             h2 = gelu_mlp(p["mlp"], h2_in)
         else:
             h2 = swiglu(p["mlp"], h2_in)
-        return x + h2, None, aux
+        new_cache = None if cache is None else dict(cache, kv=kv)
+        return x + h2, new_cache, aux
     if kind == MAMBA2:
-        h, _ = ssm_lib.mamba2_forward(
+        h, st = ssm_lib.mamba2_forward(
             p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.d_model,
-            cfg.ssm)
-        return x + h, None, aux
+            cfg.ssm, None if cache is None else cache["ssm_state"])
+        new_cache = None if cache is None else dict(cache, ssm_state=st)
+        return x + h, new_cache, aux
     if kind == RWKV6:
-        h, _ = rwkv_lib.rwkv6_time_mix(
-            p["time"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.rwkv)
+        st = None if cache is None else cache["rwkv"]
+        h, st_t = rwkv_lib.rwkv6_time_mix(
+            p["time"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.rwkv,
+            None if st is None else st["time"])
         x = x + h
-        h2, _ = rwkv_lib.rwkv6_channel_mix(
-            p["channel"], rms_norm(x, p["ln2"], cfg.norm_eps))
-        return x + h2, None, aux
+        h2, st_c = rwkv_lib.rwkv6_channel_mix(
+            p["channel"], rms_norm(x, p["ln2"], cfg.norm_eps),
+            None if st is None else st["channel"])
+        new_cache = (None if cache is None
+                     else {"rwkv": {"time": st_t, "channel": st_c}})
+        return x + h2, new_cache, aux
     raise ValueError(kind)
 
 
 def _apply_shared_attn(p: Params, cfg: ArchConfig, x, positions,
+                       cache=None, cache_index=None,
                        decode_window: Optional[int] = None):
-    """Zamba2's weight-shared attention block (no cache: train/prefill)."""
+    """Zamba2's weight-shared attention block; returns (x, new_kv_cache)."""
     spec = attn_spec(cfg, decode_window=decode_window)
-    h, _ = attention(p["attn"], spec, rms_norm(x, p["ln1"], cfg.norm_eps),
-                     positions)
+    h, kv = attention(p["attn"], spec, rms_norm(x, p["ln1"], cfg.norm_eps),
+                      positions, kv_cache=cache, cache_index=cache_index)
     x = x + h
-    return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), kv
 
 
 # ---------------------------------------------------------------------------
@@ -265,13 +271,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
     tokens: (B, L) int32. extra_embeds: modality prefix (B, P, D) — the stub
     frontend output for vlm; for audio, enc_out is the encoder output fed to
-    cross-attention.  ``cache`` (decode) raises until the serve slice.
+    cross-attention.  cache/cache_index (a python int): decode mode, the
+    layers' states stacked as :func:`init_cache` builds them; ``remat`` is
+    off there (it changes no value).
     """
     kind = block_kind(cfg)
-    if cache is not None:
-        raise _no_cache()
     B = tokens.shape[0]
     x = params["embed"].to(compute_dtype)[tokens.long()]
+    remat = remat and cache is None
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(compute_dtype), x], dim=1)
     L = x.shape[1]
@@ -285,31 +292,61 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         else:
             positions = pos1
 
-    def block(lp, x):
-        x, _, aux = apply_block(lp, cfg, kind, x, positions,
-                                enc_out=enc_out, decode_window=decode_window)
-        return x, aux
+    def block(lp, x, lc=None):
+        return apply_block(lp, cfg, kind, x, positions, cache=lc,
+                           cache_index=cache_index, enc_out=enc_out,
+                           decode_window=decode_window)
 
-    def run_block(lp, x):
+    def run_block(lp, x, lc):
         if remat:
             return checkpoint(block, lp, x, use_reentrant=False)
-        return block(lp, x)
+        return block(lp, x, lc)
 
     # zamba2: [every x mamba, shared attention] * n_shared + tail mamba
     every = cfg.shared_attn_every
-    auxs = []
+    n_shared = cfg.n_layers // every if every else 0
+    lcaches = acaches = [None] * cfg.n_layers
+    if cache is not None:
+        stack = cache["mamba"] if every else cache
+        lcaches = layer_params(stack, cfg.n_layers)
+        if every:
+            acaches = layer_params(cache["shared"], n_shared)
+    auxs, new_l, new_a = [], [], []
     for i, lp in enumerate(layer_params(params["blocks"], cfg.n_layers)):
-        x, aux = run_block(lp, x)
+        x, lc, aux = run_block(lp, x, lcaches[i])
         auxs.append(aux)
+        new_l.append(lc)
         if every and (i + 1) % every == 0:
-            x = _apply_shared_attn(params["shared_attn"], cfg, x, positions,
-                                   decode_window)
+            x, ac = _apply_shared_attn(
+                params["shared_attn"], cfg, x, positions,
+                acaches[i // every], cache_index, decode_window)
+            new_a.append(ac)
+    new_cache = None
+    if cache is not None:
+        if every:
+            new_cache = {"mamba": _restack(cache["mamba"], lcaches, new_l),
+                         "shared": _restack(cache["shared"], acaches, new_a)}
+        else:
+            new_cache = _restack(cache, lcaches, new_l)
     # the reference's jnp.sum over the layers (the hybrid stack's segment
     # sums are of Mamba2's zero aux, so the same value)
     aux_total = torch.sum(torch.stack(auxs))
     out = (rms_norm(x, params["final_norm"], cfg.norm_eps)
            if return_hidden else _head(params, cfg, x))
-    return out, None, aux_total
+    return out, new_cache, aux_total
+
+
+def _restack(stacked, old: List[Params], new: List[Params]):
+    """The layers' new states as one tree stacked over the layers.  A leaf
+    every layer updated in place (its view of ``stacked`` came back) is
+    ``stacked``'s own leaf; any other is stacked anew, in the dtype the
+    block returned."""
+    if isinstance(stacked, dict):
+        return {k: _restack(stacked[k], [o[k] for o in old],
+                            [n[k] for n in new]) for k in stacked}
+    if all(n is o for n, o in zip(new, old)):
+        return stacked
+    return torch.stack(new)
 
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -318,11 +355,53 @@ def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype)).float()
 
 
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, decode_window: Optional[int] = None):
-    """The per-layer decode states (KV caches; zamba2's Mamba2 and shared
-    attention states; RWKV-6's shift and WKV states) are the serve slice's:
-    the blocks' state shapes are here (``ssm.init_mamba2_state``,
-    ``rwkv.init_rwkv6_state``), their stacking is ported with
-    ``train/serve.py``."""
-    raise _no_cache()
+               dtype=torch.bfloat16, decode_window: Optional[int] = None,
+               device=None) -> Params:
+    """The per-layer decode states of one architecture, each leaf stacked
+    over the layers, on ``device`` (the card unless the caller names
+    another).
+
+    KV caches hold C = ``min(max_len, decode_window)`` slots of ``dtype``
+    with their absolute positions (-1: empty).  The Mamba2 and RWKV-6
+    states are float32 whatever ``dtype`` is, as the reference builds them.
+    """
+    dev = resolve_device(device)
+    kind = block_kind(cfg)
+    h = cfg.resolved_head_dim
+    C = max_len if decode_window is None else min(max_len, decode_window)
+
+    def stacked(tree, n):
+        if isinstance(tree, dict):
+            return {k: stacked(v, n) for k, v in tree.items()}
+        return tree.unsqueeze(0).repeat((n,) + (1,) * tree.dim())
+
+    def kv_cache():
+        return {"k": torch.zeros((batch, C, cfg.n_kv_heads, h), dtype=dtype,
+                                 device=dev),
+                "v": torch.zeros((batch, C, cfg.n_kv_heads, h), dtype=dtype,
+                                 device=dev),
+                "pos": torch.full((batch, C), -1, dtype=torch.int32,
+                                  device=dev)}
+
+    def mamba():
+        return {"ssm_state": ssm_lib.init_mamba2_state(
+            cfg.ssm, cfg.d_model, batch, device=dev)}
+
+    if cfg.shared_attn_every:
+        return {"mamba": stacked(mamba(), cfg.n_layers),
+                "shared": stacked(kv_cache(),
+                                  cfg.n_layers // cfg.shared_attn_every)}
+    if kind in (ATTN, SWA, MOE):
+        return stacked({"kv": kv_cache()}, cfg.n_layers)
+    if kind == MAMBA2:
+        return stacked(mamba(), cfg.n_layers)
+    if kind == RWKV6:
+        return stacked({"rwkv": rwkv_lib.init_rwkv6_state(
+            cfg.rwkv, cfg.d_model, batch, device=dev)}, cfg.n_layers)
+    raise ValueError(kind)

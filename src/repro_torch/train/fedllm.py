@@ -1,7 +1,6 @@
 """Streamed OTA-DSGD over a zoo model's parameter tree.
 
-The port of the reference's ``repro/train/fedllm.py`` without
-``serve_while_train`` (the serve slice brings it).  The paper's federated
+The port of the reference's ``repro/train/fedllm.py``.  The paper's federated
 round aggregates one d = 7850 vector; here the same registered ``Scheme``
 contract runs over the gradient of any model in the zoo
 (:mod:`repro_torch.models`: the attention, MoE, Mamba2, RWKV6 and hybrid
@@ -30,12 +29,17 @@ overlapping the decode on a second CUDA stream is later speed work.  With
 segment contract, so :func:`repro_torch.experiments.engine.run_checkpointed`
 checkpoints and resumes it bitwise, and resumes a checkpoint the JAX
 package wrote (the reference's leaf names and order).
+
+:func:`serve_while_train` alternates one-round segments with serving the
+round's decoded global params (:mod:`repro_torch.train.serve`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import rng
@@ -45,8 +49,10 @@ from repro_torch.core.schemes import (
     MACContext, Scheme, encode_round, get_scheme, metric_mean,
     round_simulated,
 )
-from repro_torch.device import resolve_device
-from repro_torch.experiments.engine import _stack_outs, round_masked
+from repro_torch.device import clock, resolve_device
+from repro_torch.experiments.engine import (
+    _restore_carry, _stack_outs, round_keys, round_masked,
+)
 from repro_torch.models import model as model_lib
 from repro_torch.optim.optim import make_optimizer
 from repro_torch.train.trainer import (
@@ -292,3 +298,103 @@ class CompiledFedLLM:
                                        self.carry0(), 0)
         outs["params"] = carry[0]
         return outs
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """(B, 1) int32 argmax of the last position's logits (the first index
+    among equal values, as ``jnp.argmax``)."""
+    return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+
+
+def serve_while_train(arch: ArchConfig, rounds: int = 2, *,
+                      ota: Optional[OTAConfig] = None,
+                      train_cfg: Optional[TrainConfig] = None,
+                      m: int = 4, batch: int = 2, seq_len: int = 16,
+                      chunk_size: int = 1 << 14,
+                      serve_batch: int = 2, prompt_len: int = 4,
+                      decode_steps: int = 4, seed: int = 0,
+                      mesh=None, checkpoint_dir: Optional[str] = None,
+                      checkpoint_every: int = 0, resume: bool = False,
+                      verify_publish: bool = True,
+                      device=None) -> Dict[str, Any]:
+    """The serve-while-train loop, on ``device`` (the card by default).
+
+    Alternates one-round training segments with serving: after round
+    ``t`` a device-side copy of the decoded global params is
+    :meth:`~repro_torch.train.serve.ServeStep.publish`-ed and
+    ``prefill_fn`` + ``decode_fn`` answer a greedy batch (a zero prompt of
+    ``prompt_len``, then ``decode_steps`` tokens) before round ``t + 1``
+    starts.  With ``checkpoint_dir`` the carry is saved every
+    ``checkpoint_every`` rounds through :mod:`repro_torch.train.checkpoint`
+    (the reference's file, ``fedllm_ckpt.npz``) and ``resume=True``
+    continues bitwise (per-round keys are absolute, the carry explicit).
+
+    Returns ``{"losses", "metrics", "served_tokens", "publish_bitwise",
+    "params", "seconds"}``: ``publish_bitwise`` stays True iff every
+    round's served params were bitwise the round's decoded globals
+    (``verify_publish``); ``seconds`` holds each round's ``train``,
+    ``publish``, ``prefill`` and ``decode`` times on the host's clock, each
+    read after the device's queue drained.
+    """
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.serve import make_serve_step
+
+    ota = ota or OTAConfig(projection="blocked", s_frac=0.25, k_frac=0.5,
+                           block_size=1024)
+    train_cfg = train_cfg or TrainConfig()
+    mesh = mesh or make_local_mesh()
+    fed = CompiledFedLLM(arch, train_cfg, ota, m=m, batch=batch,
+                         seq_len=seq_len, chunk_size=chunk_size, seed=seed,
+                         device=device)
+    dev = fed.device
+    serve = make_serve_step(arch, mesh, serve_batch,
+                            prompt_len + decode_steps, device=dev)
+    keys = round_keys(rounds, seed, device=dev)
+
+    carry, t0 = fed.carry0(), 0
+    ckpt = (os.path.join(checkpoint_dir, "fedllm_ckpt.npz")
+            if checkpoint_dir else None)
+    if resume and ckpt and os.path.exists(ckpt):
+        loaded, t0 = load_checkpoint(ckpt, dev)
+        carry = _restore_carry(carry, loaded)
+
+    prompt = torch.zeros((serve_batch, prompt_len), dtype=torch.int32,
+                         device=dev)
+    losses, mets, served, seconds, publish_ok = [], [], [], [], True
+    for t in range(t0, rounds):
+        c0 = clock(dev)
+        carry, outs = fed.run_segment({}, keys[t:t + 1], None, carry, t)
+        losses.append(float(outs["loss"][0]))
+        mets.append({k: float(v[0]) for k, v in outs["metrics"].items()})
+
+        # publish round t's decoded globals (a device-side copy, so the
+        # trainer's live carry is not handed away), then serve from them
+        c1 = clock(dev)
+        view = serve.publish(tree_map(torch.clone, carry[0]))
+        c2 = clock(dev)
+        if verify_publish:
+            publish_ok = publish_ok and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(view),
+                                                  tree_leaves(carry[0])))
+        c3 = clock(dev)
+        logits, cache = serve.prefill_fn(view, serve.init_cache(), prompt)
+        tok = _greedy(logits)
+        c4 = clock(dev)
+        toks = []
+        for i in range(decode_steps):
+            toks.append(tok[:, 0].cpu().numpy())
+            logits, cache = serve.decode_fn(view, cache, tok, prompt_len + i)
+            tok = _greedy(logits)
+        c5 = clock(dev)
+        served.append(np.stack(toks, axis=1))
+        seconds.append({"train": c1 - c0, "publish": c2 - c1,
+                        "prefill": c4 - c3, "decode": c5 - c4})
+        del view, cache, logits
+
+        if ckpt and checkpoint_every and (t + 1) % checkpoint_every == 0:
+            save_checkpoint(ckpt, carry, step=t + 1)
+
+    return {"losses": np.asarray(losses), "metrics": mets,
+            "served_tokens": served, "publish_bitwise": publish_ok,
+            "params": carry[0], "seconds": seconds}

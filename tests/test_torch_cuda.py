@@ -1515,3 +1515,80 @@ def test_model_on_card_matches_cpu(dev, arch):
                 a.numpy(), b.numpy(), rtol=GRAD_RTOL,
                 atol=max(GRAD_ATOL, scale_atol * float(b.abs().max())))
     np.testing.assert_allclose(card16, cpu16, rtol=BF16_LOSS_RTOL)
+
+
+#: the serve path's bars of tests/test_torch_serve.py, each of a tensor's
+#: largest magnitude: float32; bfloat16 largest and mean gap
+DECODE_F32_BAR = 1e-5
+DECODE_BF16_BAR, DECODE_BF16_MEAN_BAR = 4e-2, 8e-3
+
+
+def _decode_gap(card: torch.Tensor, cpu: torch.Tensor) -> tuple:
+    if not cpu.is_floating_point():
+        assert torch.equal(card.cpu(), cpu)
+        return 0.0, 0.0
+    a, b = card.cpu().float(), cpu.float()
+    scale = float(b.abs().max().clamp_min(1e-30))
+    d = (a - b).abs()
+    return float(d.max()) / scale, float(d.mean()) / scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_decode_on_card_matches_cpu(dev, arch, dtype):
+    """The reduced config's seeded weights: a 4-token prefill and 3 greedy
+    decode steps (``make_serve_step``) on the card and on the CPU, fed the
+    same tokens; the logits and every cache leaf after each call within
+    the CPU port's bars against the reference, the leaves' dtypes equal.
+    Prints the measured gaps."""
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import make_serve_step
+    tdt = getattr(torch, dtype)
+    cfg = get_config(arch).reduced()
+    params = tmodel.init_params(cfg, rng.PRNGKey(0, device="cpu"))
+    r = np.random.default_rng(2)
+    prompt = torch.from_numpy(r.integers(0, cfg.vocab, (2, 4)).astype(
+        np.int32))
+    frames = None
+    if cfg.encoder is not None:
+        frames = torch.from_numpy((0.02 * r.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.encoder.d_model))).astype(
+                np.float32))
+    sides = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        s = make_serve_step(cfg, make_local_mesh(), 2, 7, compute_dtype=tdt,
+                            cache_dtype=tdt, device=device)
+        p = s.publish(tree_map(lambda a: a.to(device), params))
+        enc = (() if frames is None else (transformer.encode_audio(
+            p, cfg, frames.to(device, tdt)),))
+        sides[name] = (s, p, enc, s.init_cache(tdt))
+    worst = [0.0, 0.0]
+    tok = None
+    for i in range(4):
+        outs = {}
+        for name, (s, p, enc, cache) in sides.items():
+            if i == 0:
+                lg, cache = s.prefill_fn(p, cache, prompt.to(s.device), *enc)
+            else:
+                lg, cache = s.decode_fn(p, cache, tok.to(s.device), 3 + i,
+                                        *enc)
+            sides[name] = (s, p, enc, cache)
+            outs[name] = (lg, cache)
+        tok = torch.argmax(outs["cpu"][0][:, -1], -1)[:, None].to(torch.int32)
+        pairs = [(outs["card"][0], outs["cpu"][0])] + list(zip(
+            tree_leaves(outs["card"][1]), tree_leaves(outs["cpu"][1])))
+        for a, b in pairs:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            top, mean = _decode_gap(a, b)
+            worst = [max(worst[0], top), max(worst[1], mean)]
+    print(f"\ndecode on card vs cpu {arch} {dtype}: largest {worst[0]:.3e}, "
+          f"mean {worst[1]:.3e} of each tensor's largest magnitude")
+    if dtype == "float32":
+        assert worst[0] <= DECODE_F32_BAR
+    else:
+        assert worst[0] <= DECODE_BF16_BAR and worst[1] <= DECODE_BF16_MEAN_BAR

@@ -26,8 +26,9 @@ Held against the live reference on the CPU:
   bar is ``GRAD_GAPS``: a count of entries that may leave it, each within a
   stated multiple of its leaf's largest magnitude.
 
-``init_cache`` raises for every arch: the decode states are the serve
-slice's.
+``init_cache`` builds every arch's decode states and a forward runs with
+them; the decode path is held against the reference in
+``tests/test_torch_serve.py``.
 """
 import dataclasses
 
@@ -414,18 +415,30 @@ def test_optimizer_on_nested_params_matches_reference(ref_params):
 
 
 # ---------------------------------------------------------------------------
-# the decode states: the serve slice's
+# the decode states (held against the reference in test_torch_serve.py)
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch", tbase.ARCH_IDS)
 def test_init_cache_raises_naming_the_serve_slice(arch):
+    """Once raised until the serve slice landed; now every arch's decode
+    states build, stacked over the layers, and a forward with them runs one
+    step and writes the caches."""
     cfg = tbase.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="serve"):
-        transformer.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="serve"):
-        transformer.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                            cache={})
+    cache = transformer.init_cache(cfg, 1, 8, device="cpu")
+    assert all(leaf.shape[0] in (cfg.n_layers, cfg.n_layers // max(
+        cfg.shared_attn_every, 1)) for leaf in tree_leaves(cache))
+    params = tmodel.init_params(cfg, rng.PRNGKey(0, device="cpu"))
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = torch.zeros((1, cfg.encoder.n_frames, cfg.d_model))
+    out, new, _ = transformer.forward(
+        params, cfg, torch.zeros((1, 1), dtype=torch.int32), cache=cache,
+        cache_index=0, enc_out=enc_out, compute_dtype=torch.float32)
+    assert tuple(out.shape) == (1, 1, cfg.vocab)
+    kv = new.get("kv", new.get("shared"))
+    if kv is not None:
+        assert bool((kv["pos"][..., 0] == 0).all())
 
 
 def test_hybrid_shared_block_runs_n_layers_over_every_times(monkeypatch):
