@@ -145,9 +145,8 @@ Phases, one JSON line each:
             blocks at id_offset 1-24); (c) ``round_sharded`` on 25 ranks;
             (d) ``sharded_round`` with five edge sites of five and
             ``site_mac``; (e) a bfloat16 frame body; (b)-(e) 5 rounds
-            each.  One launch per rank and round: 50 of ota_project and
-            amp_fused in (a), (b), (d), (e), 25 of each main-path kernel in
-            (c).  (a), (b), (c) bitwise their plain runs on the card (the
+            each.  One launch per rank and round: 50 of each main-path
+            kernel in (a), (b), (d), (e), 25 in (c).  (a), (b), (c) bitwise their plain runs on the card (the
             first 5 rounds), (b) bitwise (a), two runs of (a) bitwise; and
             (f) a 2 x 2 gloo process group of four processes on the card,
             3 rounds, bitwise the thread mesh at 2 x 2.  Per run: test
@@ -204,7 +203,30 @@ Phases, one JSON line each:
             and whisper-base (the encoder over its 1500 frames), batch 4,
             a 16-token prefill and 16 tokens: ms per token, peak memory,
             finite logits;
-16. benchmarks
+16. trainer the sharded trainer (``train/trainer.py``): (a)
+            ``make_train_step`` on smollm-360m at its published widths (d
+            = 361 821 120, seeded weights from ``init_state``),
+            ``TrainConfig()`` (bfloat16 compute, remat, Adam),
+            ``ota_overrides("smollm_360m")`` with use_kernel and
+            shard_decode (blocks of 4096 -> 1024, 20 AMP iterations; d_pad
+            361 824 256, 44 168 blocks a model shard), a 4 x 2 mesh of
+            rank threads (data x model, ota_axes ("data",)) and
+            ``TokenStream(vocab, 64, 16)``, launch/train.py's batch: one
+            untimed step and two timed ones, each with exactly 8 launches
+            of ef_sparsify, ota_project and amp_fused (one a rank) and
+            none of ota_project_t; ms a step and its split into
+            gradients, aggregation and update, tokens a second, peak
+            allocated memory, finite losses, the frame power within 1 % of
+            P_t; a ``torch.profiler`` trace of one more step's
+            aggregation (device busy share, top kernels); the two kernels
+            at one rank's shapes (1 x 180 912 128 of ef_sparsify, bitwise
+            plain; 1 x 44 168 blocks of ota_project, 11 042 of amp_fused,
+            the first 16 blocks bitwise plain; ms, bound and share); (b)
+            smollm-360m reduced, 3 steps, flat and sliced: the
+            kernels against use_kernel=False, ĝ of every step, the error
+            state and the params bitwise, and shard_decode on against off,
+            ĝ bitwise;
+17. benchmarks
             the port's benchmark scripts (``repro_torch.benchmarks``): (a)
             ``bench_kernels`` at its full sizes (64 x 1024 -> 256, 10 AMP
             iterations; 256 x 4096 -> 1024, 20), every kernel path within
@@ -221,7 +243,7 @@ Phases, one JSON line each:
             ``BENCH_torch_sweeps.json`` at the checkout's root; beside each
             projection row, one ``torch.bmm`` on A materialised beforehand
             (``library_ms`` per call, ``library_graph_ms`` by replay);
-17. kernels the per-kernel record: route, source, the TPU kernel it
+18. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
@@ -233,7 +255,8 @@ chunk time with fewer repetitions: a call takes tens of ms).
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
 population, each run of sharded, fedllm's and fedllm_moe's timed rounds,
-serve's rounds, bench_kernels) runs with every launch count set to 0 just before it and read just after.
+serve's rounds, the trainer's timed steps, bench_kernels) runs with every
+launch count set to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -309,6 +332,7 @@ PATH_KERNELS = {"slice": ("ef_sparsify", "ota_project", "amp_fused"),
                 "local": ("ef_sparsify", "ota_project", "amp_fused"),
                 "population": ("ef_sparsify", "ota_project", "amp_fused"),
                 "sharded": ("ef_sparsify", "ota_project", "amp_fused"),
+                "trainer": ("ef_sparsify", "ota_project", "amp_fused"),
                 "benchmarks": ("ota_project", "ota_project_t", "amp_fused")}
 #: the sweep phase's grid: the paper's schemes x P-bar, G = 4 points a group
 SWEEP_P_AVG = (50.0, 200.0, 500.0, 1000.0)
@@ -385,6 +409,28 @@ SERVE_F32_BAR = 1e-5
 #: decoding alone at full depth: the archs, batch, prompt and tokens
 SERVE_WIDE = ("rwkv6_3b", "zamba2_7b", "whisper_base")
 SERVE_WIDE_BATCH = 4
+#: the trainer phase: smollm-360m's train step at its published widths on
+#: a 4 x 2 mesh of rank threads (data x model), launch/train.py's batch of
+#: 16 x 64 tokens, one untimed step and two timed ones; the padded d (a
+#: multiple of the 4096 block x 2 model shards) and the launches a step
+#: (one of each main-path kernel per rank)
+TRAIN_MESH = ((4, 2), ("data", "model"))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 16, 64, 2
+TRAIN_D_PAD = 361_824_256
+TRAIN_LAUNCHES = {"ef_sparsify": 8, "ota_project": 8, "ota_project_t": 0,
+                  "amp_fused": 8}
+#: blocks of one rank's full-width kernel calls held bitwise against the
+#: plain versions
+TRAIN_CHECK_BLOCKS = 16
+#: the reduced runs held bitwise on the card: steps, batch and tokens,
+#: and the settings of the reference's tests/test_distributed.py
+TRAIN_REDUCED_STEPS, TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 3, 8, 32
+TRAIN_REDUCED_OTA = dict(scheme="a_dsgd", projection="blocked",
+                         block_size=512, s_frac=0.25, k_frac=0.5,
+                         rademacher=True, p_avg=500.0, total_steps=50,
+                         amp_iters=10, mean_removal_steps=3)
+TRAIN_REDUCED_CFG = dict(optimizer="adam", lr=1e-3, warmup_steps=0,
+                         total_steps=50, compute_dtype="float32", remat=True)
 
 
 class CheckFailed(RuntimeError):
@@ -2155,11 +2201,11 @@ def run_sharded_phase(data, cfg, device, steps: int = STEPS):
         "e_bf16_frame": ("sharded_round", mesh2,
                          dict(slice_kw, frame_dtype=torch.bfloat16)),
     }
-    # one launch per rank and round: sharded_round's encode projects and
-    # its decode decodes one block (EF runs in plain ops), round_sharded's
+    # one launch per rank and round: sharded_round's encode runs the error
+    # feedback and projects, its decode decodes one block; round_sharded's
     # encode runs all three main-path kernels
     n2 = mesh2.size
-    per_round = {"sharded_round": {"ef_sparsify": 0, "ota_project": n2,
+    per_round = {"sharded_round": {"ef_sparsify": n2, "ota_project": n2,
                                    "ota_project_t": 0, "amp_fused": n2},
                  "round_sharded": {"ef_sparsify": m, "ota_project": m,
                                    "ota_project_t": 0, "amp_fused": m}}
@@ -2619,11 +2665,45 @@ def serve_f32_against_cpu(arch, params, device) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+def device_busy(fn, per: int = 1) -> dict:
+    """``fn()`` under ``torch.profiler``: the host's ms for it, the
+    kernels' device ms, the busy share (device over host time), and the
+    device ops and the top six by device time, those two per ``per``
+    (steps or calls).  ``busy_share`` "not measured" where the trace holds
+    no device time."""
+    import torch
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        device_us = sum(dev_us(e) for e in events)
+        kernels = sum(e.count for e in events if dev_us(e) > 0)
+    except Exception as exc:           # CUPTI may be unavailable here
+        return dict(busy_share="not measured", error=repr(exc)[:200])
+    if device_us <= 0:
+        return dict(busy_share="not measured", wall_ms=wall_ms)
+    top = sorted(events, key=lambda e: -dev_us(e))
+    return dict(wall_ms=wall_ms, device_ms=device_us / 1e3,
+                busy_share=device_us / 1e3 / wall_ms,
+                device_ops=kernels / per,
+                top=[(e.key[:60], dev_us(e) / 1e3 / per) for e in top[:6]])
+
+
 def decode_busy_share(arch, params, device, steps: int = 4) -> dict:
     """The device's busy share while the serve batch decodes: the kernels'
     device time in a ``torch.profiler`` trace of ``steps`` bfloat16 decode
-    steps over the host's time for them.  "not measured" where the trace
-    holds no device time."""
+    steps over the host's time for them (:func:`device_busy`)."""
     import torch
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train.serve import make_serve_step
@@ -2634,38 +2714,16 @@ def decode_busy_share(arch, params, device, steps: int = 4) -> dict:
                          device=device)
     lg, cache = s.prefill_fn(params, s.init_cache(), prompt)
     tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    try:
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=act) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                lg, cache = s.decode_fn(params, cache, tok, SERVE_PROMPT + i)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        device_us = sum(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0))
-                        for e in events)
-        kernels = sum(e.count for e in events
-                      if getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0)) > 0)
-    except Exception as exc:           # CUPTI may be unavailable here
-        return dict(steps=steps, busy_share="not measured",
-                    error=repr(exc)[:200])
-    if device_us <= 0:
-        return dict(steps=steps, busy_share="not measured",
-                    wall_ms=wall_ms)
-    top = sorted(events, key=lambda e: -getattr(
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
-    return dict(steps=steps, wall_ms=wall_ms,
-                device_ms=device_us / 1e3, busy_share=device_us / 1e3
-                / wall_ms, device_ops_per_step=kernels / steps,
-                top=[(e.key[:60], getattr(e, "self_device_time_total",
-                                          getattr(e, "self_cuda_time_total",
-                                                  0)) / 1e3 / steps)
-                     for e in top[:6]])
+
+    def decode():
+        c = cache
+        for i in range(steps):
+            _, c = s.decode_fn(params, c, tok, SERVE_PROMPT + i)
+
+    out = device_busy(decode, per=steps)
+    if "device_ops" in out:
+        out["device_ops_per_step"] = out.pop("device_ops")
+    return dict(steps=steps, **out)
 
 
 def seeded_params(cfg, device):
@@ -2846,7 +2904,301 @@ def run_serve_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the benchmarks (repro_torch.benchmarks)
+# phase 16: the sharded trainer (repro_torch.train.trainer)
+# ---------------------------------------------------------------------------
+
+
+def _trainer_run(ts, stream, steps, device):
+    """``steps`` steps of ``ts`` from its initial state on ``stream``'s
+    batches: ``(params, delta, metrics per step, ĝ per step)``."""
+    from repro_torch import rng
+    from repro_torch.convert import ravel
+    ghats = []
+    aggregate = ts.aggregate_fn
+
+    def keep_ghat(*args):
+        ghat, met = aggregate(*args)
+        ghats.append(ravel(ghat).clone())
+        return ghat, met
+
+    ts.aggregate_fn = keep_ghat
+    params, opt_state, delta = ts.init_state(rng.PRNGKey(0, device=device))
+    fn = ts.jitted({"tokens": None})
+    mets = []
+    for step in range(steps):
+        params, opt_state, delta, met = fn(
+            params, opt_state, delta, stream.batch_at(step), step,
+            rng.PRNGKey(step, device=device))
+        mets.append({k: float(v) for k, v in met.items()})
+    return params, delta, mets, ghats
+
+
+def trainer_reduced(device) -> dict:
+    """smollm-360m reduced, 3 steps on the 4 x 2 thread mesh, flat and
+    sliced: the kernels bitwise their plain versions (ĝ every step, the
+    error state and the params), and shard_decode on against off (ĝ)."""
+    import torch
+    from repro_torch.configs.base import OTAConfig, TrainConfig, get_config
+    from repro_torch.convert import ravel, tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import Mesh
+    from repro_torch.train import trainer
+
+    arch = get_config("smollm_360m").reduced()
+    stream = TokenStream(arch.vocab, TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH,
+                         seed=0)
+    out = {}
+    for layout in ("flat", "sliced"):
+        make = (trainer.make_train_step_sliced if layout == "sliced"
+                else trainer.make_train_step)
+        runs, counts = {}, {}
+        variants = {"kernel": dict(use_kernel=True),
+                    "plain": dict(use_kernel=False)}
+        if layout == "flat":
+            variants["kernel_shard_decode"] = dict(use_kernel=True,
+                                                   shard_decode=True)
+        for name, over in variants.items():
+            ota = OTAConfig(**{**TRAIN_REDUCED_OTA, **over})
+            ts = make(arch, TrainConfig(**TRAIN_REDUCED_CFG), ota,
+                      Mesh(*TRAIN_MESH), device=device)
+            ops.reset_launches()
+            runs[name] = _trainer_run(ts, stream, TRAIN_REDUCED_STEPS,
+                                      device)
+            counts[name] = ops.launch_counts()
+        k, p = runs["kernel"], runs["plain"]
+        subframes = 2 if layout == "sliced" else 1
+        per_step = {n: v * subframes * TRAIN_REDUCED_STEPS
+                    for n, v in TRAIN_LAUNCHES.items()}
+        check(counts["kernel"] == per_step,
+              f"trainer (b) {layout}: launches {counts['kernel']}, "
+              f"expected {per_step}")
+        check(not any(counts["plain"].values()),
+              f"trainer (b) {layout}: the plain run launched "
+              f"{counts['plain']}")
+        for i, (a, b) in enumerate(zip(k[3], p[3])):
+            check(torch.equal(a, b), f"trainer (b) {layout}: ĝ of step {i} "
+                  "differs between kernels and plain")
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(k[1]),
+                                                     tree_leaves(p[1]))),
+              f"trainer (b) {layout}: error state differs")
+        check(torch.equal(ravel(k[0]), ravel(p[0])),
+              f"trainer (b) {layout}: params differ")
+        check(k[2] == p[2], f"trainer (b) {layout}: metrics differ")
+        losses = [m["global_loss"] for m in k[2]]
+        check(all(map(math.isfinite, losses)),
+              f"trainer (b) {layout}: losses {losses}")
+        rec = dict(vs_plain="bitwise", global_loss=losses,
+                   launches=counts["kernel"])
+        if layout == "flat":
+            sd = runs["kernel_shard_decode"]
+            for i, (a, b) in enumerate(zip(k[3], sd[3])):
+                check(torch.equal(a, b), f"trainer (b): ĝ of step {i} "
+                      "differs with shard_decode")
+            rec["shard_decode_vs_off"] = "bitwise"
+            rec["shard_decode_launches"] = counts["kernel_shard_decode"]
+        out[layout] = rec
+    return out
+
+
+def trainer_kernel_rows(device, gen) -> list:
+    """The three kernels at one rank's shapes on the trainer's full-width
+    path: a model shard's error feedback (1 x 180 912 128, bitwise its
+    plain version) and projection (1 x 44 168 blocks of 4096 -> 1024,
+    shard 1's folded seed), and a device row's quarter of the decode under
+    shard_decode (11 042 blocks, 20 iterations, a noisy block-sparse y).
+    Times by CUDA events (2 calls) and by replay of one captured call
+    (twice); the projection's and the decode's first
+    ``TRAIN_CHECK_BLOCKS`` blocks bitwise their plain versions, whose time
+    on those blocks is recorded (on the whole shape they take tens of
+    seconds).  No ``torch.bmm`` yardstick: A would take 741 and 185 GB."""
+    import torch
+    from repro_torch.configs.base import ota_overrides
+    from repro_torch.core.amp import amp_blocked_core
+    from repro_torch.core.projection import BlockedProjector
+    from repro_torch.kernels import amp_fused, ef_sparsify, ota_project, ref
+    ota = ota_overrides(FEDLLM_ARCH)
+    c, iters = ota.block_size, ota.amp_iters
+    s = max(2, int(round(ota.s_frac * c)))
+    nb = TRAIN_D_PAD // (c * TRAIN_MESH[0][1])
+    nq = nb // TRAIN_MESH[0][0]
+    k = TRAIN_CHECK_BLOCKS
+    seed = int(ref.splitmix32(ref.as_u32(ota.seed) ^ ref.as_u32(1)))
+    small = dict(warmup=1, reps=2)
+    graph = dict(warmup=0, n=1, replays=2)
+
+    n = nb * c
+    g = torch.randn(1, n, generator=gen, device=device)
+    delta = 0.3 * torch.randn(1, n, generator=gen, device=device)
+    tau = torch.full((1,), 1.5, device=device)
+    sp, nd = ef_sparsify.ef_sparsify(g, delta, tau)
+    sp_ref, nd_ref = ref.ef_sparsify_ref(g, delta, tau)
+    check(torch.equal(sp, sp_ref) and torch.equal(nd, nd_ref),
+          f"trainer ef_sparsify 1x{n}: not bitwise its plain version")
+    rows = [dict(
+        kernel="ef_sparsify", shape=[1, n], tol="bitwise",
+        max_abs_err=max(errors(sp, sp_ref)[0], errors(nd, nd_ref)[0]),
+        kernel_ms=cuda_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau),
+                          **small),
+        graph_device_ms=graph_ms(
+            lambda: ef_sparsify.ef_sparsify(g, delta, tau), **graph),
+        plain_ms=cuda_ms(lambda: ref.ef_sparsify_ref(g, delta, tau),
+                         **small),
+        library_ms=None, bound=bound(4 * (4 * n + 1), 3 * n))]
+    del g, delta, sp, nd, sp_ref, nd_ref
+
+    x = torch.randn(1, nb, c, generator=gen, device=device)
+    proj = BlockedProjector(d=k * c, block_size=c, s_block=s, seed=seed,
+                            rademacher=True)
+    y = ota_project.ota_project(x, seed, s, True)
+    want = proj.project_blocks(x[:, :k])
+    check(torch.equal(y[:, :k], want), f"trainer ota_project 1x{nb}: the "
+          "first blocks differ from the plain version: "
+          + mismatch(y[:, :k], want, 0, 0))
+    entries = nb * s * c
+    rows.append(dict(
+        kernel="ota_project", shape=[1, nb, c, s], tol="bitwise",
+        checked_blocks=k, max_abs_err=errors(y[:, :k], want)[0],
+        kernel_ms=cuda_ms(lambda: ota_project.ota_project(x, seed, s, True),
+                          **small),
+        graph_device_ms=graph_ms(
+            lambda: ota_project.ota_project(x, seed, s, True), **graph),
+        plain_ms_checked_blocks=cuda_ms(
+            lambda: proj.project_blocks(x[:, :k]), warmup=0, reps=1),
+        library_ms=None,
+        bound=bound(4 * (nb * c + nb * s), entries * HASH_OPS + 2 * entries)))
+    del x, y
+
+    xs = block_sparse(nq, c, s // 8, gen, device)
+    yb = (ota_project.ota_project(xs[None], seed, s, True)[0]
+          + 0.01 * torch.randn(nq, s, generator=gen, device=device))
+    kw = dict(iters=iters, rademacher=True)
+    out = amp_fused.amp_decode_fused(yb, seed, c, **kw)
+    want = amp_blocked_core(yb[:k].contiguous(), seed, c, use_kernel=False,
+                            **kw)
+    check(torch.equal(out[:k], want), f"trainer amp_fused {nq} blocks: the "
+          "first blocks differ from the plain version: "
+          + mismatch(out[:k], want, 0, 0))
+    entries = nq * s * c
+    rows.append(dict(
+        kernel="amp_fused", shape=[nq, s, c], iters=iters, tol="bitwise",
+        checked_blocks=k, max_abs_err=errors(out[:k], want)[0],
+        kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
+                                                             **kw), **small),
+        graph_device_ms=graph_ms(
+            lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw), **graph),
+        plain_ms_checked_blocks=cuda_ms(
+            lambda: amp_blocked_core(yb[:k].contiguous(), seed, c,
+                                     use_kernel=False, **kw),
+            warmup=0, reps=1),
+        library_ms=None,
+        bound=bound(4 * (nq * s + nq * c),
+                    (2 * iters + 1) * 2 * entries + HASH_OPS * entries)))
+    for rec in rows:
+        rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
+    return rows
+
+
+def run_trainer_phase(device) -> dict:
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import Mesh
+    from repro_torch.train.trainer import make_train_step
+
+    free_device_memory()
+    t_phase = time.perf_counter()
+    # (a) smollm-360m at its published widths
+    arch = get_config(FEDLLM_ARCH)
+    ota = dataclasses.replace(ota_overrides(FEDLLM_ARCH), use_kernel=True,
+                              shard_decode=True)
+    train_cfg = TrainConfig()
+    ts = make_train_step(arch, train_cfg, ota, Mesh(*TRAIN_MESH),
+                         ota_axes=("data",), device=device)
+    check(ts.d == FEDLLM_D and ts.d_pad == TRAIN_D_PAD
+          and ts.m_devices == TRAIN_MESH[0][0],
+          f"trainer (a): d {ts.d}, d_pad {ts.d_pad}, M {ts.m_devices}")
+    stream = TokenStream(arch.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, delta = ts.init_state(rng.PRNGKey(0, device=device))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fn = ts.jitted({"tokens": None})
+    # one untimed step, then the timed ones with the counts read around them
+    params, opt_state, delta, met = fn(params, opt_state, delta,
+                                       stream.batch_at(0), 0,
+                                       rng.PRNGKey(0, device=device))
+    losses = [float(met["global_loss"])]
+    ms, splits, powers = [], [], []
+    ops.reset_launches()
+    for step in range(1, 1 + TRAIN_TIMED):
+        batch = stream.batch_at(step)
+        key = rng.PRNGKey(step, device=device)
+        (params, opt_state, delta, met), t_ms = _events_ms(
+            lambda: fn(params, opt_state, delta, batch, step, key))
+        ms.append(t_ms)
+        splits.append({k: v * 1e3 for k, v in ts.split.items()})
+        losses.append(float(met["global_loss"]))
+        powers.append((float(met["frame_power"]), float(met["p_t"])))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # where phase 2's time goes: one more step's aggregation, traced
+    step = 1 + TRAIN_TIMED
+    gstack, _ = ts.grads_fn(params, stream.batch_at(step))
+    key = rng.PRNGKey(step, device=device)
+    aggregate_trace = device_busy(lambda: ts.aggregate_fn(
+        gstack, delta, step, key, delta))
+    del gstack
+    want = {k: v * TRAIN_TIMED for k, v in TRAIN_LAUNCHES.items()}
+    check(launches == want, f"trainer (a): launches {launches}, expected "
+          f"{want}")
+    check(all(map(math.isfinite, losses)), f"trainer (a): losses {losses}")
+    check(all(abs(fp - pt) <= 0.01 * pt for fp, pt in powers),
+          f"trainer (a): frame power against P_t {powers}")
+    mets = {k: float(v) for k, v in met.items()}
+    check(all(map(math.isfinite, mets.values())),
+          f"trainer (a): metrics {mets}")
+    del params, opt_state, delta, met
+    free_device_memory()
+    full_s = time.perf_counter() - t_phase
+
+    # the two kernels at one rank's shapes of (a)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    kernel_rows = trainer_kernel_rows(device, gen)
+    free_device_memory()
+
+    # (b) reduced, kernels against plain and shard_decode on against off
+    t1 = time.perf_counter()
+    reduced = trainer_reduced(device)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return dict(
+        phase="trainer", arch=FEDLLM_ARCH, d=ts.d, d_pad=ts.d_pad,
+        mesh=dict(zip(TRAIN_MESH[1], TRAIN_MESH[0])), ota_axes=["data"],
+        m_devices=ts.m_devices, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        blocks=ts.d_pad // ota.block_size,
+        config=dict(block_size=ota.block_size, s_frac=ota.s_frac,
+                    k_frac=ota.k_frac, rademacher=ota.rademacher,
+                    amp_iters=ota.amp_iters, use_kernel=ota.use_kernel,
+                    shard_decode=ota.shard_decode,
+                    compute_dtype=train_cfg.compute_dtype,
+                    remat=train_cfg.remat, optimizer=train_cfg.optimizer),
+        init_s=init_s, timed_steps=TRAIN_TIMED, ms_per_step=ms,
+        split_ms=splits, tokens_per_s=[tokens / (t / 1e3) for t in ms],
+        peak_allocated_gb=peak / 1e9, global_loss=losses,
+        frame_power_vs_p_t=powers, final_metrics=mets,
+        aggregate_trace=aggregate_trace, kernel_rows=kernel_rows,
+        launches=launches,
+        launches_per_step={k: v // TRAIN_TIMED for k, v in launches.items()},
+        full_width_s=full_s, reduced=reduced,
+        reduced_s=time.perf_counter() - t1)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the benchmarks (repro_torch.benchmarks)
 # ---------------------------------------------------------------------------
 
 #: the paper's Fig. 2 claim (PAPER.md): A-DSGD converges faster than D-DSGD,
@@ -3128,6 +3480,8 @@ def main() -> int:
     emit(fm)
     sv = run_serve_phase(device)
     emit(sv)
+    tr = run_trainer_phase(device)
+    emit(tr)
     bm = run_benchmarks_phase(device)
     emit(bm)
 
@@ -3137,7 +3491,7 @@ def main() -> int:
              "local": lo["launches"], "population": po["launches"],
              "sharded": sd["launches"], "fedllm": fl["launches"],
              "fedllm_moe": fm["launches"], "serve": sv["launches"],
-             "benchmarks": bm["launches"]}
+             "trainer": tr["launches"], "benchmarks": bm["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -3177,6 +3531,9 @@ def main() -> int:
                                    "launches_per_call", "library_ms",
                                    "library_graph_ms")}
                 for r in bm["bench_kernels"]["rows"] if r["kernel"] == name]
+        if name != "ota_project_t":
+            kernels[-1]["trainer_rank_shape"] = next(
+                r for r in tr["kernel_rows"] if r["kernel"] == name)
         if name in ("ota_project", "amp_fused"):
             one = sharded_shapes[0 if name == "ota_project" else 1]
             kernels[-1]["sharded_rank_shape"] = {

@@ -514,19 +514,22 @@ class ADSGDScheme(Scheme):
         d_pad = ctx.d_pad
         d_local = g_slice.shape[0]
 
-        # error feedback and the sampled global threshold
-        g_ec = g_slice + state_slice.float()
+        # error feedback and the sampled global threshold: the threshold
+        # from a strided sample of g + state, then the fused error
+        # feedback (the ef_sparsify kernel with use_kernel, as ``encode``)
+        st = state_slice.float()
         k = max(1, int(cfg.k_frac * cfg.s_frac * d_pad))
         stride = max(1, d_local // ctx.sample_per_shard)
         n_s = d_local // stride
-        local_sample = g_ec[0:n_s * stride:stride].abs()
+        local_sample = (g_slice[0:n_s * stride:stride]
+                        + st[0:n_s * stride:stride]).abs()
         all_samples = (sharding.all_gather(local_sample,
                                            ctx.shard_axes).reshape(-1)
                        if ctx.shard_axes else local_sample)
         tau = compression._quantile_linear(all_samples, 1.0 - k / d_pad)
-        keep = g_ec.abs() >= tau
-        g_sp = torch.where(keep, g_ec, 0.0)
-        new_state = (g_ec - g_sp).to(state_slice.dtype)
+        g_sp, new_state = ops.ef_sparsify(g_slice, st, tau,
+                                          use_kernel=self._use_kernel(ctx))
+        new_state = new_state.to(state_slice.dtype)
 
         # blocked projection with the shard-folded seed
         c = cfg.block_size
@@ -863,7 +866,9 @@ def sharded_channel_draw(scheme: Scheme, key: torch.Tensor, step,
     row = int(dev_idx)
 
     def pick(v):
-        return None if v is None else v[row]
+        # jax's dynamic index clamps: with edge-site groups the draw has
+        # one row per group (ctx.m), fewer than the device rows
+        return None if v is None else v[min(row, v.shape[0] - 1)]
     return ChannelDraw(pick(draw.p_factor), pick(draw.active),
                        gain=pick(draw.gain), noise_scale=draw.noise_scale)
 

@@ -3,4 +3,6 @@ from repro_torch.data.partition import (  # noqa: F401
     make_partition, partition_dirichlet, partition_iid,
     partition_label_shards, population_label_bias, population_partition,
 )
-from repro_torch.data.synthetic import federated_split, make_classification  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    TokenStream, federated_split, make_classification,
+)

@@ -1,16 +1,51 @@
-"""The paper-repro classification surrogate, the port's own numpy copy.
+"""Deterministic synthetic data pipelines, the port's own numpy copies.
 
-:func:`make_classification` stands in for MNIST: 10-class 28x28 "images"
-drawn from class-conditioned low-rank Gaussian templates (60k train / 10k
-test, d = 7850 for the single-layer model).  It is a copy of the
-reference's ``repro/data/synthetic.py`` function of the same name, so both
-packages build the same arrays from the same seed.
+* :class:`TokenStream` — language-model token batches for the zoo models:
+  a fixed-seed Markov-ish stream (a bigram permutation mixed with noise) so
+  the loss has learnable structure; sharded per data-parallel replica.
+* :func:`make_classification` stands in for MNIST: 10-class 28x28 "images"
+  drawn from class-conditioned low-rank Gaussian templates (60k train /
+  10k test, d = 7850 for the single-layer model).
+
+Both are copies of the reference's ``repro/data/synthetic.py`` functions of
+the same names, so both packages build the same arrays from the same seed.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
+
+
+@dataclass
+class TokenStream:
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int, shard: int = 0, n_shards: int = 1
+                 ) -> Dict[str, np.ndarray]:
+        """Deterministic batch for (step, shard): int32 tokens
+        ``(batch / n_shards, seq_len)``."""
+        if self.batch % n_shards:
+            raise ValueError(f"batch {self.batch} does not split over "
+                             f"{n_shards} shards")
+        b = self.batch // n_shards
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, shard]))
+        # structured stream: x_t follows x_{t-1} through a fixed
+        # permutation, mixed with noise -> learnable bigram structure
+        perm = np.random.default_rng(self.seed).permutation(self.vocab)
+        toks = np.empty((b, self.seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, b)
+        noise = rng.integers(0, self.vocab, (b, self.seq_len))
+        follow = rng.random((b, self.seq_len)) < 0.8
+        for t in range(1, self.seq_len):
+            toks[:, t] = np.where(follow[:, t], perm[toks[:, t - 1]],
+                                  noise[:, t])
+        return {"tokens": toks}
 
 
 def make_classification(n_train: int = 60000, n_test: int = 10000,

@@ -5,8 +5,7 @@ training-time technique; serving has no gradient aggregation, so a serve
 step is plain decoding: :func:`repro_torch.models.model.decode_step` under
 the placement the reference declares (params over ``'model'``, the batch
 over the data axes, each KV cache over batch -> data and one inner dim ->
-model).  The spec trees are those of the reference; on a mesh of one rank
-every spec places its tensor whole on the serve device.
+model).  The spec trees are those of the reference.
 
 Serve-while-train (:func:`repro_torch.train.fedllm.serve_while_train`):
 the streamed federated trainer hands each round's decoded global params to
@@ -15,9 +14,10 @@ host copy (on one rank: the same tensors, as the reference's donated
 identity returns them), and ``decode_fn`` answers requests against
 whichever published tree the caller holds.
 
-Placing params over a ``'model'`` axis of more than one rank needs the
-sharded trainer's machinery (ROADMAP queue 1, item 3), so a mesh of more
-than one rank raises ``NotImplementedError``.
+On a mesh of more than one rank the placement is metadata, as the sharded
+trainer's (:mod:`repro_torch.train.trainer`): the spec trees are the
+reference's for that mesh, and the tensors live whole on the serve device,
+where one card's ranks would share its memory anyway.
 """
 from __future__ import annotations
 
@@ -92,11 +92,6 @@ def make_serve_step(arch: ArchConfig, mesh, batch: int, max_len: int,
     position from position 0 and returns the last step's logits and the
     cache.  Both consume ``cache`` (its KV caches are written in place).
     """
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"make_serve_step on a mesh of {mesh.size} ranks: placing params "
-            "over a 'model' axis comes with the sharded trainer (ROADMAP "
-            "queue 1, item 3); serve on a mesh of one rank")
     dev = resolve_device(device)
     axis_sizes = dict(zip(mesh.axis_names, mesh.shape))
     data_axes = tuple(a for a in mesh.axis_names if a != "model")

@@ -1280,7 +1280,7 @@ def test_sharded_round_kernels_bitwise_plain_on_card(dev, shard_decode):
     """A 4 x 2 thread mesh at full width (d_pad 8192, one 4096 block per
     shard): with the kernels bitwise the plain run on the card, the
     shard_decode run bitwise the full decode, and each rank launching
-    ota_project and amp_fused once (8 and 8), ef_sparsify never."""
+    ef_sparsify, ota_project and amp_fused once (8 of each)."""
     from repro_torch import rng as trng
     from repro_torch.configs.base import ota_overrides
     from repro_torch.core import distributed
@@ -1308,7 +1308,7 @@ def test_sharded_round_kernels_bitwise_plain_on_card(dev, shard_decode):
                                 (P("shard"), P("dev", "shard")))(g, dl)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        assert counts == ({"ef_sparsify": 0, "ota_project": 8,
+        assert counts == ({"ef_sparsify": 8, "ota_project": 8,
                            "ota_project_t": 0, "amp_fused": 8} if uk else
                           {"ef_sparsify": 0, "ota_project": 0,
                            "ota_project_t": 0, "amp_fused": 0}), counts
@@ -1592,3 +1592,67 @@ def test_decode_on_card_matches_cpu(dev, arch, dtype):
         assert worst[0] <= DECODE_F32_BAR
     else:
         assert worst[0] <= DECODE_BF16_BAR and worst[1] <= DECODE_BF16_MEAN_BAR
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer
+# ---------------------------------------------------------------------------
+
+#: tests/test_torch_trainer_steps.py's bars: losses 1e-5 relative, every
+#: metric of step 0 1e-5, the frame's alpha, tau and frame_power after it
+#: 1e-3; params within lr x steps, at most TRAINER_FLIPS past 1e-4
+TRAINER_LOSS_RTOL, TRAINER_FRAME_RTOL, TRAINER_FLIPS = 1e-5, 1e-3, 400
+
+
+@pytest.mark.parametrize("layout", ["flat", "sliced"])
+def test_trainer_on_card_matches_cpu(dev, layout):
+    """smollm-360m reduced, 3 steps on the 4 x 2 thread mesh with the
+    kernels, on the card and on the CPU port (which
+    ``tests/test_torch_trainer_steps.py`` holds against the reference), the
+    reference's test settings and batches.  Prints the measured gaps."""
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OTAConfig, TrainConfig
+    from repro_torch.convert import ravel
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.sharding import Mesh
+    from repro_torch.train import trainer
+    arch = get_config("smollm_360m").reduced()
+    ota = OTAConfig(scheme="a_dsgd", projection="blocked", block_size=512,
+                    s_frac=0.25, k_frac=0.5, rademacher=True, p_avg=500.0,
+                    total_steps=50, amp_iters=10, mean_removal_steps=3,
+                    use_kernel=True)
+    tc = TrainConfig(optimizer="adam", lr=1e-3, warmup_steps=0,
+                     total_steps=50, compute_dtype="float32", remat=True)
+    make = (trainer.make_train_step_sliced if layout == "sliced"
+            else trainer.make_train_step)
+    stream = TokenStream(arch.vocab, 32, 8, seed=0)
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        ts = make(arch, tc, ota, Mesh((4, 2), ("data", "model")),
+                  device=device)
+        params, opt_state, delta = ts.init_state(rng.PRNGKey(0))
+        fn = ts.jitted({"tokens": None})
+        mets = []
+        for step in range(3):
+            params, opt_state, delta, met = fn(
+                params, opt_state, delta, stream.batch_at(step), step,
+                rng.PRNGKey(step))
+            mets.append({k: float(v) for k, v in met.items()})
+        runs[name] = (ravel(params).cpu(), mets)
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(runs["card"][1], runs["cpu"][1])):
+        assert set(a) == set(b)
+        for k in a:
+            rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            worst = max(worst, rel)
+            bar = (TRAINER_FRAME_RTOL if step and k in ("alpha", "tau",
+                                                        "frame_power")
+                   else TRAINER_LOSS_RTOL)
+            assert rel <= bar, (step, k, a[k], b[k])
+    diff = (runs["card"][0] - runs["cpu"][0]).abs()
+    print(f"\ntrainer on card vs cpu {layout}: metrics {worst:.3e} "
+          f"relative, params {float(diff.max()):.3e}, "
+          f"{int((diff > 1e-4).sum())} past 1e-4")
+    assert float(diff.max()) <= 1e-3 * 3
+    assert int((diff > 1e-4).sum()) <= TRAINER_FLIPS
