@@ -243,7 +243,25 @@ Phases, one JSON line each:
             ``BENCH_torch_sweeps.json`` at the checkout's root; beside each
             projection row, one ``torch.bmm`` on A materialised beforehand
             (``library_ms`` per call, ``library_graph_ms`` by replay);
-18. kernels the per-kernel record: route, source, the TPU kernel it
+18. dryrun the dry run and the roofline (``launch/dryrun.py``,
+            ``benchmarks/roofline.py``), steps traced on ``meta`` tensors
+            and counted per device, no kernel launched: (a) the production
+            mesh: smollm-360m at prefill_32k, decode_32k and long_500k on
+            16 x 16 in this process (``torch.cuda.memory_allocated()`` the
+            same before and after), and its train_4k on 16 x 16 and 2 x 16
+            x 16, granite-moe-1b-a400m's train_4k and decode_32k on 16 x
+            16 in a process of its own with no card visible, started after
+            the build so that its minutes of tracing overlap the phases
+            between; each record's flops, bytes, collective bytes, memory
+            per device and trace seconds, and its roofline row on the
+            H100's peaks; (b) phase 16's own step (smollm-360m, 4 x 2 rank
+            threads, 16 x 64 tokens, use_kernel and shard_decode) traced:
+            the whole thread mesh's work over one card's peaks beside the
+            measured step and its split, each kernel's ``cost.py`` bound
+            times its calls beside phase 16's per-call times, and the
+            trace's peak live bytes beside the measured peak.  Nothing in
+            (b) is a bar; a failed record fails the phase;
+19. kernels the per-kernel record: route, source, the TPU kernel it
             replaces, launches on its path (and on every path), error,
             times and bound.
 
@@ -266,6 +284,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -277,17 +296,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-#: H100 SXM peaks (NVIDIA data sheet):
-#: HBM bytes/s and float32 FLOP/s outside the tensor cores.  The hash's
-#: integer operations are counted at the float32 rate too, which can only
-#: make the bound smaller, so it stays a lower bound on the kernel's time.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-#: integer operations per entry of A: one lowbias32 stage (9) + the column xor
-HASH_OPS = 10
-#: a Gaussian entry adds a second stage, the uniform maps and Box-Muller
-GAUSS_EXTRA_OPS = 20
 
 STEPS = 20
 WARMUP, REPS = 3, 20
@@ -616,11 +624,12 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least time in ms, what bounds it) on the H100's published peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound(work):
+    """(least time in ms, what bounds it) of a kernel call's bytes and
+    operations (a :class:`repro_torch.kernels.cost.Cost`) on the H100's
+    published peaks."""
+    from repro_torch.kernels import cost
+    return cost.bound(*work)
 
 
 def errors(out, want):
@@ -664,20 +673,20 @@ def check_ef_sparsify(m: int, n: int, k: int, device, gen):
     torch.cuda.synchronize()
     check(torch.equal(sp, sp_ref) and torch.equal(nd, nd_ref),
           f"ef_sparsify {m}x{n}: not bitwise equal to its plain version")
-    n_bytes = 4 * (4 * m * n + m)
+    from repro_torch.kernels import cost
     return dict(
         kernel="ef_sparsify", shape=[m, n], tol="bitwise",
         max_abs_err=max(errors(sp, sp_ref)[0], errors(nd, nd_ref)[0]),
         max_rel_err=0.0,
         **timings(lambda: ef_sparsify.ef_sparsify(g, delta, tau),
                   lambda: ref.ef_sparsify_ref(g, delta, tau)),
-        bound=bound(n_bytes, 3 * m * n))
+        bound=bound(cost.ef_sparsify(m, n)))
 
 
 def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
                       device, gen, bitwise: bool = False, seed: int = 12345):
     import torch
-    from repro_torch.kernels import ota_project, ref
+    from repro_torch.kernels import cost, ota_project, ref
     x = torch.randn(m, n_blocks, c, generator=gen, device=device)
     y = ota_project.ota_project(x, seed, s, rademacher)
     y_ref = ref.ota_project_ref(x, seed, s, rademacher)
@@ -689,9 +698,6 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
     A = ref.block_matrix_ref(seed, torch.arange(n_blocks, device=device), s,
                              c, rademacher)
     xt = x.permute(1, 2, 0).contiguous()                  # (n_blocks, c, m)
-    entries = n_blocks * s * c
-    n_ops = entries * (HASH_OPS + (0 if rademacher else GAUSS_EXTRA_OPS)) \
-        + 2 * m * entries
     again = ota_project.ota_project(x, seed, s, rademacher)
     torch.cuda.synchronize()
     check(torch.equal(y, again), "ota_project: two runs differ")
@@ -707,13 +713,13 @@ def check_ota_project(m: int, n_blocks: int, c: int, s: int, rademacher: bool,
         **timings(lambda: ota_project.ota_project(x, seed, s, rademacher),
                   lambda: ref.ota_project_ref(x, seed, s, rademacher),
                   lambda: torch.bmm(A, xt)),
-        bound=bound(4 * (m * n_blocks * c + m * n_blocks * s), n_ops))
+        bound=bound(cost.ota_project(m, n_blocks, c, s, rademacher)))
 
 
 def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
                         rademacher: bool, device, gen):
     import torch
-    from repro_torch.kernels import ota_project, ref
+    from repro_torch.kernels import cost, ota_project, ref
     y = torch.randn(m, n_blocks, s, generator=gen, device=device)
     seed = 12345
     r = ota_project.ota_project_t(y, seed, c, rademacher)
@@ -732,9 +738,6 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
     A_t = ref.block_matrix_ref(seed, torch.arange(n_blocks, device=device),
                                s, c, rademacher).transpose(1, 2).contiguous()
     yt = y.permute(1, 2, 0).contiguous()                  # (n_blocks, s, m)
-    entries = n_blocks * s * c
-    n_ops = entries * (HASH_OPS + (0 if rademacher else GAUSS_EXTRA_OPS)) \
-        + 2 * m * entries
     abs_err, rel_err = errors(r, r_ref)
     return dict(
         kernel="ota_project_t", shape=[m, n_blocks, s, c],
@@ -744,7 +747,7 @@ def check_ota_project_t(m: int, n_blocks: int, s: int, c: int,
         **timings(lambda: ota_project.ota_project_t(y, seed, c, rademacher),
                   lambda: ref.ota_project_t_ref(y, seed, c, rademacher),
                   lambda: torch.bmm(A_t, yt)),
-        bound=bound(4 * (m * n_blocks * s + m * n_blocks * c), n_ops))
+        bound=bound(cost.ota_project_t(m, n_blocks, s, c, rademacher)))
 
 
 def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
@@ -753,7 +756,7 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
     import torch
     from repro_torch.core.amp import amp_blocked_core
     from repro_torch.core.projection import BlockedProjector
-    from repro_torch.kernels import amp_fused, build, layout
+    from repro_torch.kernels import amp_fused, build, cost, layout
     seed = 777
     # a block-sparse signal (k/s = 1/8, well inside AMP's recovery region at
     # s/c = 1/4) observed with noise, as the main path's y carries AWGN.
@@ -788,10 +791,6 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
           "decode's rows")
     recovery = float((out - x).norm() / x.norm())
     check(recovery < 0.2, f"amp_fused: relative recovery error {recovery}")
-    entries = n_blocks * s * c
-    n_ops = (2 * iters + 1) * 2 * entries + HASH_OPS * entries
-    if not rademacher:
-        n_ops += GAUSS_EXTRA_OPS * entries
     return dict(
         kernel="amp_fused", shape=[n_blocks, s, c], iters=iters,
         entries="rademacher" if rademacher else "gaussian",
@@ -805,7 +804,7 @@ def check_amp_fused(n_blocks: int, c: int, s: int, iters: int, device, gen,
         **timings(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw),
                   lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
                                            **kw), light=light),
-        bound=bound(4 * (n_blocks * s + n_blocks * c), n_ops))
+        bound=bound(cost.amp_fused(1, n_blocks, s, c, iters, rademacher)))
 
 
 def check_ota_project_streamed(m: int, n_blocks: int, c: int, s: int,
@@ -818,7 +817,7 @@ def check_ota_project_streamed(m: int, n_blocks: int, c: int, s: int,
     into one float32 tensor."""
     import torch
     from repro_torch.core.projection import BlockedProjector
-    from repro_torch.kernels import ota_project, ref
+    from repro_torch.kernels import cost, ota_project, ref
     proj = BlockedProjector(d=n_blocks * c, block_size=c, s_block=s,
                             seed=seed, rademacher=True)
     x = torch.randn(m, n_blocks, c, generator=gen, device=device)
@@ -835,7 +834,6 @@ def check_ota_project_streamed(m: int, n_blocks: int, c: int, s: int,
         ids = torch.arange(b0, min(b0 + 8, n_blocks), device=device)
         A[b0:b0 + len(ids)] = ref.block_matrix_ref(seed, ids, s, c, True)
     xt = x.permute(1, 2, 0).contiguous()                  # (n_blocks, c, m)
-    entries = n_blocks * s * c
     light = n_blocks > 8
     out = dict(
         kernel="ota_project", shape=[m, n_blocks, c, s],
@@ -844,8 +842,7 @@ def check_ota_project_streamed(m: int, n_blocks: int, c: int, s: int,
         **timings(lambda: ota_project.ota_project(x, seed, s, True),
                   lambda: proj.project_blocks(x), lambda: torch.bmm(A, xt),
                   light=light),
-        bound=bound(4 * (m * n_blocks * c + m * n_blocks * s),
-                    entries * HASH_OPS + 2 * m * entries))
+        bound=bound(cost.ota_project(m, n_blocks, c, s)))
     del A
     return out
 
@@ -882,7 +879,7 @@ def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
     after the other) and with G launches of one point each."""
     import torch
     from repro_torch.core.amp import amp_blocked_core
-    from repro_torch.kernels import amp_fused, ref
+    from repro_torch.kernels import amp_fused, cost, ref
     seed = 777
     x = torch.stack([block_sparse(n_blocks, c, s // 8, gen, device)
                      for _ in range(points)])
@@ -910,8 +907,6 @@ def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
           "equal to its plain version: " + mismatch(out, want, 0, 0))
     # A is the same matrix for every point: the function hashes it once a
     # block, and runs the iterations' products once a point
-    entries = n_blocks * s * c
-    n_ops = (2 * iters + 1) * 2 * points * entries + HASH_OPS * entries
     return dict(
         kernel="amp_fused", shape=[points, n_blocks, s, c], iters=iters,
         entries="rademacher", tol="bitwise (plain and G = 1 launches)",
@@ -924,7 +919,7 @@ def check_amp_fused_points(points: int, n_blocks: int, c: int, s: int,
         **timings(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw),
                   lambda: amp_blocked_core(yb, seed, c, use_kernel=False,
                                            **kw)),
-        bound=bound(4 * (points * n_blocks * (s + c)), n_ops))
+        bound=bound(cost.amp_fused(points, n_blocks, s, c, iters)))
 
 
 def check_amp_fused_offsets(c: int, s: int, iters: int, offsets, device,
@@ -3016,7 +3011,8 @@ def trainer_kernel_rows(device, gen) -> list:
     from repro_torch.configs.base import ota_overrides
     from repro_torch.core.amp import amp_blocked_core
     from repro_torch.core.projection import BlockedProjector
-    from repro_torch.kernels import amp_fused, ef_sparsify, ota_project, ref
+    from repro_torch.kernels import (amp_fused, cost, ef_sparsify, ota_project,
+                                     ref)
     ota = ota_overrides(FEDLLM_ARCH)
     c, iters = ota.block_size, ota.amp_iters
     s = max(2, int(round(ota.s_frac * c)))
@@ -3044,7 +3040,7 @@ def trainer_kernel_rows(device, gen) -> list:
             lambda: ef_sparsify.ef_sparsify(g, delta, tau), **graph),
         plain_ms=cuda_ms(lambda: ref.ef_sparsify_ref(g, delta, tau),
                          **small),
-        library_ms=None, bound=bound(4 * (4 * n + 1), 3 * n))]
+        library_ms=None, bound=bound(cost.ef_sparsify(1, n)))]
     del g, delta, sp, nd, sp_ref, nd_ref
 
     x = torch.randn(1, nb, c, generator=gen, device=device)
@@ -3055,7 +3051,6 @@ def trainer_kernel_rows(device, gen) -> list:
     check(torch.equal(y[:, :k], want), f"trainer ota_project 1x{nb}: the "
           "first blocks differ from the plain version: "
           + mismatch(y[:, :k], want, 0, 0))
-    entries = nb * s * c
     rows.append(dict(
         kernel="ota_project", shape=[1, nb, c, s], tol="bitwise",
         checked_blocks=k, max_abs_err=errors(y[:, :k], want)[0],
@@ -3066,7 +3061,7 @@ def trainer_kernel_rows(device, gen) -> list:
         plain_ms_checked_blocks=cuda_ms(
             lambda: proj.project_blocks(x[:, :k]), warmup=0, reps=1),
         library_ms=None,
-        bound=bound(4 * (nb * c + nb * s), entries * HASH_OPS + 2 * entries)))
+        bound=bound(cost.ota_project(1, nb, c, s))))
     del x, y
 
     xs = block_sparse(nq, c, s // 8, gen, device)
@@ -3079,7 +3074,6 @@ def trainer_kernel_rows(device, gen) -> list:
     check(torch.equal(out[:k], want), f"trainer amp_fused {nq} blocks: the "
           "first blocks differ from the plain version: "
           + mismatch(out[:k], want, 0, 0))
-    entries = nq * s * c
     rows.append(dict(
         kernel="amp_fused", shape=[nq, s, c], iters=iters, tol="bitwise",
         checked_blocks=k, max_abs_err=errors(out[:k], want)[0],
@@ -3092,8 +3086,7 @@ def trainer_kernel_rows(device, gen) -> list:
                                      use_kernel=False, **kw),
             warmup=0, reps=1),
         library_ms=None,
-        bound=bound(4 * (nq * s + nq * c),
-                    (2 * iters + 1) * 2 * entries + HASH_OPS * entries)))
+        bound=bound(cost.amp_fused(1, nq, s, c, iters))))
     for rec in rows:
         rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
     return rows
@@ -3198,6 +3191,196 @@ def run_trainer_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the dry run and the roofline (repro_torch.launch.dryrun,
+# repro_torch.benchmarks.roofline)
+# ---------------------------------------------------------------------------
+
+#: records traced in this process: (arch, shape, multi-pod)
+DRYRUN_HERE = [("smollm_360m", "prefill_32k", False),
+               ("smollm_360m", "decode_32k", False),
+               ("smollm_360m", "long_500k", False)]
+#: records traced in a process of its own from the build on (minutes)
+DRYRUN_BACKGROUND = [("smollm_360m", "train_4k", False),
+                     ("smollm_360m", "train_4k", True),
+                     ("granite_moe_1b_a400m", "train_4k", False),
+                     ("granite_moe_1b_a400m", "decode_32k", False)]
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+#: seconds the phase waits for the background records after the others
+DRYRUN_WAIT = 600
+
+
+def _dryrun_argv(arch: str, shape: str, multi_pod: bool) -> list:
+    return (["--arch", arch, "--shape", shape, "--out", str(DRYRUN_DIR)]
+            + (["--multi-pod"] if multi_pod else []))
+
+
+def start_dryrun_records():
+    """The background records, in a process of its own with no card
+    visible (the dry run needs none); stopped at the script's exit."""
+    import atexit
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    argvs = [_dryrun_argv(*r) for r in DRYRUN_BACKGROUND]
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"sys.exit(max([dryrun.main(a) for a in {argvs!r}]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(DRYRUN_DIR / "background.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    atexit.register(stop)
+    return proc, t0, stop
+
+
+def _record_summary(row: dict) -> dict:
+    """A roofline row of a record, for the phase line."""
+    info = row
+    mem = info["mem_per_device"]
+    return dict(
+        arch=info["arch"], shape=info["shape"], mesh=info["mesh"],
+        trace_s=info["compile_seconds"], flops=info["flops"],
+        bytes_accessed=info["bytes_accessed"],
+        collective_bytes=info["collective_bytes"]["total"],
+        argument_bytes=mem["argument_bytes"],
+        output_bytes=mem["output_bytes"], temp_bytes=mem["temp_bytes"],
+        thread_mesh_temp_bytes=info["thread_mesh"]["temp_bytes"],
+        kernel_calls={k: v["calls"] for k, v in info["kernels"].items()},
+        t_compute_s=row["t_compute"], t_memory_s=row["t_memory"],
+        t_collective_s=row["t_collective"], dominant=row["dominant"])
+
+
+def _trainer_against_roofline(rec: dict, tr: dict) -> dict:
+    """Phase 16's measured step beside the traced step's terms: the whole
+    thread mesh's work over one card's peaks (the models' products at the
+    bf16 tensor-core rate, the kernels' operations at the float32 rate;
+    on one card a collective of the thread mesh is a copy in HBM)."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch import mesh as mesh_lib
+    whole = rec["thread_mesh"]
+    kernel_ops = sum(k["ops"] for k in rec["kernels"].values())
+    model_flops = whole["flops"] - kernel_ops
+    terms = dict(
+        compute_s=model_flops / mesh_lib.PEAK_FLOPS_BF16
+        + kernel_ops / mesh_lib.PEAK_FLOPS_FP32,
+        memory_s=whole["bytes_accessed"] / mesh_lib.HBM_BW,
+        collective_s=whole["collective_bytes"]["total"] / mesh_lib.HBM_BW)
+    measured_ms = tr["ms_per_step"]
+    split = tr["split_ms"]
+    by_kernel = {r["kernel"]: r for r in tr["kernel_rows"]}
+    kernels = {}
+    for name, k in rec["kernels"].items():
+        calls = k["calls"]
+        per_call = cost.bound(k["bytes"] / calls, k["ops"] / calls)
+        row = by_kernel.get(name, {})
+        kernels[name] = dict(
+            calls=calls, bound_ms_per_call=per_call[0], bound_by=per_call[1],
+            bound_ms_step=per_call[0] * calls,
+            measured_graph_ms_per_call=row.get("graph_device_ms",
+                                               "not measured"),
+            measured_ms_step=(row["graph_device_ms"] * calls
+                              if "graph_device_ms" in row
+                              else "not measured"))
+    trace_top = tr.get("aggregate_trace", {}).get("top", [])
+    return dict(
+        model_flops=model_flops, kernel_ops=kernel_ops,
+        bytes_accessed=whole["bytes_accessed"],
+        collective_bytes=whole["collective_bytes"]["total"],
+        terms_s=terms, roofline_s=max(terms.values()),
+        dominant=max(terms, key=terms.get),
+        measured_ms_per_step=measured_ms, measured_split_ms=split,
+        over_roofline=[m / 1e3 / max(terms.values()) for m in measured_ms],
+        kernels=kernels, aggregate_trace_top=trace_top,
+        traced_peak_live_gb=whole["temp_bytes"] / 1e9,
+        measured_peak_allocated_gb=tr["peak_allocated_gb"],
+        trace_s=rec["trace_s"])
+
+
+def run_dryrun_phase(background, tr: dict) -> dict:
+    """Phase 18: (a) the production-mesh records, (b) phase 16's step
+    against its roofline (``tr``: the trainer line)."""
+    import torch
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import Mesh
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    # earlier phases' garbage goes first: a collection during the trace
+    # would free it and move the count
+    gc.collect()
+    free_device_memory()
+    mem0 = torch.cuda.memory_allocated()
+    for rec in DRYRUN_HERE:
+        check(dryrun.main(_dryrun_argv(*rec)) == 0,
+              f"dryrun: {rec} failed (see its .fail file)")
+
+    # (b) phase 16's configuration
+    arch = get_config(FEDLLM_ARCH)
+    ota = dataclasses.replace(ota_overrides(FEDLLM_ARCH), use_kernel=True,
+                              shard_decode=True)
+    batch = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                   dtype=torch.int32, device="meta")}
+    t0 = time.perf_counter()
+    lay = dryrun.train_layout(arch, TrainConfig(), ota, Mesh(*TRAIN_MESH),
+                              ("data",), batch)
+    counter = dryrun.Counter(lay.step.mesh)
+    extra, out_bytes = dryrun.trace_train(lay, counter)
+    rec_b = dryrun.counted_record(counter, lay.argument_bytes(counter),
+                                  out_bytes, extra)
+    rec_b["trace_s"] = time.perf_counter() - t0
+    check(rec_b["d_pad"] == TRAIN_D_PAD,
+          f"dryrun (b): d_pad {rec_b['d_pad']}")
+    check({k: v["calls"] for k, v in rec_b["kernels"].items()}
+          == {k: v for k, v in TRAIN_LAUNCHES.items() if v},
+          f"dryrun (b): kernel calls {rec_b['kernels']}")
+    del lay, counter
+    gc.collect()
+    free_device_memory()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 == mem0, f"dryrun: memory allocated on the card moved from "
+          f"{mem0} to {mem1} bytes")
+
+    # (a) the background records
+    proc, t_start, stop = background
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT)
+    except subprocess.TimeoutExpired:
+        rc = "timed out"
+    stop()
+    background_s = time.perf_counter() - t_start
+    fails = sorted(p.name for p in DRYRUN_DIR.glob("*.fail"))
+    check(rc == 0 and not fails,
+          f"dryrun: background records rc {rc}, failed {fails}: "
+          + (DRYRUN_DIR / "background.log").read_text()[-2000:])
+    rows = roofline.load_rows(results=str(DRYRUN_DIR))
+    want = len(DRYRUN_HERE) + len(DRYRUN_BACKGROUND)
+    check(len(rows) == want and all("skipped" not in r for r in rows),
+          f"dryrun: {len(rows)} records, expected {want}")
+    records = [_record_summary(r) for r in rows]
+    for r in records:
+        check(all(math.isfinite(r[k]) and r[k] > 0
+                  for k in ("flops", "bytes_accessed", "argument_bytes",
+                            "output_bytes", "temp_bytes")),
+              f"dryrun: record {r}")
+    return dict(
+        phase="dryrun", nvidia_smi=smi, records=records,
+        trainer_against_roofline=_trainer_against_roofline(rec_b, tr),
+        memory_allocated_before_after=[mem0, mem1],
+        background_s=background_s,
+        phase_s=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the benchmarks (repro_torch.benchmarks)
 # ---------------------------------------------------------------------------
 
@@ -3221,20 +3404,16 @@ def bench_kernel_rows(device) -> list:
     ``large``)."""
     import torch
     from repro_torch.benchmarks import bench_kernels
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
 
     rows = []
     for size, nb, c, s, iters in bench_kernels.SIZES_FULL:
         x, yb = bench_kernels.inputs(nb, c, s, device)
         calls = bench_kernels.op_calls(x, yb, c, s, iters, use_kernel=True)
-        entries = nb * s * c
-        proj_ops = entries * HASH_OPS + 2 * entries
         bounds = {
-            "proj_fwd": bound(4 * (nb * c + nb * s), proj_ops),
-            "proj_adj": bound(4 * (nb * s + nb * c), proj_ops),
-            "amp_decode": bound(4 * (nb * s + nb * c),
-                                (2 * iters + 1) * 2 * entries
-                                + HASH_OPS * entries)}
+            "proj_fwd": bound(cost.ota_project(1, nb, c, s)),
+            "proj_adj": bound(cost.ota_project_t(1, nb, s, c)),
+            "amp_decode": bound(cost.amp_fused(1, nb, s, c, iters))}
         for op, fn in calls.items():
             g = graph_ms(fn, warmup=1, n=10, replays=3)
             rows.append(dict(size=size, op=op,
@@ -3392,6 +3571,7 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               library=build.library_path().name,
               ptxas=ptxas_summary(log.getvalue())))
+    dryrun_background = start_dryrun_records()
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -3484,6 +3664,8 @@ def main() -> int:
     emit(tr)
     bm = run_benchmarks_phase(device)
     emit(bm)
+    dr = run_dryrun_phase(dryrun_background, tr)
+    emit(dr)
 
     paths = {"slice": sl["launches"], "unfused_decode": ud["launches"],
              "engine": eng["launches"], "sweep": sw["launches"],

@@ -1,11 +1,12 @@
 """Benchmark entry point: one harness per paper figure, the Theorem 1
-bound, and the kernel, sweep and streamed-LLM benchmarks, on the port.
+bound, the dry run's roofline, and the kernel, sweep and streamed-LLM
+benchmarks, on the port.
 
 Prints a ``name,us_per_call,derived`` CSV summary at the end (derived =
 final test accuracy for the figure benchmarks).  ``FULL=1`` in the
 environment restores the paper-scale settings.
 
-Run:  python -m repro_torch.benchmarks.run [fig2|...|fig13|thm1|kernels|sweeps|llm]
+Run:  python -m repro_torch.benchmarks.run [fig2|...|fig13|thm1|roofline|kernels|sweeps|llm]
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ def main(device=None) -> None:
         fig2_schemes, fig3_power_alloc, fig4_power_sweep, fig5_bandwidth,
         fig6_devices,
         fig7_s_tradeoff, fig8_bias, fig9_fading, fig10_scaling, fig11_robust,
-        fig12_local, fig13_geometry,
+        fig12_local, fig13_geometry, roofline,
     )
     only = sys.argv[1] if len(sys.argv) > 1 else None
     benches = {
@@ -36,6 +37,7 @@ def main(device=None) -> None:
         "fig12": fig12_local.main,
         "fig13": fig13_geometry.main,
         "thm1": convergence_bound.main,
+        "roofline": roofline.main,
         "kernels": bench_kernels.main,
         "sweeps": bench_sweeps.main,
         "llm": bench_llm.main,

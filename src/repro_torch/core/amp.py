@@ -154,7 +154,8 @@ def amp_blocked_core(yb: torch.Tensor, seed, c: int, iters: int = 20,
         y_c = yb[b0:b0 + chunk_blocks]
         ids = torch.arange(b0, b0 + y_c.shape[0], dtype=torch.int64,
                            device=yb.device) + offset
-        A = ref.block_matrix_ref(seed, ids, s_block, c, rademacher)  # ONCE
+        # ONCE, in the float64 that every product takes it in
+        A = ref.block_matrix_ref(seed, ids, s_block, c, rademacher).double()
 
         def adjoint(z, A=A):
             return ref.contract("isc,is->ic", A, z)

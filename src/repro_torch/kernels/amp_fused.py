@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, layout, ref
+from repro_torch.kernels import build, cost, layout, ref
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -53,26 +53,39 @@ def amp_decode_fused(yb: torch.Tensor, seed, c: int, *, iters: int = 20,
     ``seed`` and ``id_offset`` (global id of the first block of every
     point) are ints or int64-held uint32 tensors.  CPU tensors take the
     plain version, chunked by ``chunk_blocks`` and one point after the
-    other; CUDA tensors launch the kernel.
+    other; CUDA tensors launch the kernel; ``meta`` tensors get an output
+    of the kernel's shape and their counts go to the active counter
+    (:mod:`repro_torch.kernels.cost`).
     """
     if yb.device.type == "cpu":
         from repro_torch.core.amp import amp_blocked_core
         return amp_blocked_core(yb, seed, c, iters, chunk_blocks,
                                 threshold_mult, debias, rademacher,
                                 id_offset=id_offset, use_kernel=False)
+    if yb.device.type == "meta":
+        build.require_meta_f32("amp_decode_fused", yb=yb)
+        points, n_blocks, s_block = _shape(yb)
+        cost.record("amp_fused", cost.amp_fused(points, n_blocks, s_block, c,
+                                                iters, rademacher))
+        return yb.new_empty(*yb.shape[:-1], c)
     return _launch(yb, seed, c, iters, threshold_mult, debias, rademacher,
                    id_offset)
+
+
+def _shape(yb: torch.Tensor):
+    """``(points, n_blocks, s_block)`` of a 2- or 3-dimensional ``yb``."""
+    if yb.dim() not in (2, 3):
+        raise ValueError(f"amp_decode_fused: yb must be (n_blocks, s_block) "
+                         f"or (G, n_blocks, s_block), got {tuple(yb.shape)}")
+    n_blocks, s_block = yb.shape[-2:]
+    return (yb.shape[0] if yb.dim() == 3 else 1), n_blocks, s_block
 
 
 def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
             debias: bool, rademacher: bool, id_offset) -> torch.Tensor:
     global launches
     build.require_cuda_f32("amp_decode_fused", yb=yb)
-    if yb.dim() not in (2, 3):
-        raise ValueError(f"amp_decode_fused: yb must be (n_blocks, s_block) "
-                         f"or (G, n_blocks, s_block), got {tuple(yb.shape)}")
-    n_blocks, s_block = yb.shape[-2:]
-    points = yb.shape[0] if yb.dim() == 3 else 1
+    points, n_blocks, s_block = _shape(yb)
     lib = build.library()
     k = layout.amp_cluster_size(s_block, c)
     g = layout.amp_row_segments(s_block, c)

@@ -185,6 +185,19 @@ def device_u32(value, device) -> torch.Tensor:
     return _const_u32(int(value) & 0xFFFFFFFF, str(device))
 
 
+def require_meta_f32(name: str, **tensors) -> None:
+    """What a kernel's meta route takes: contiguous ``meta`` float32
+    tensors, as the kernel takes CUDA ones."""
+    for arg, t in tensors.items():
+        if t.device.type != "meta":
+            raise ValueError(f"{name}: {arg} must be a meta tensor, "
+                             f"got {t.device}")
+        if t.dtype is not torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
 def require_cuda_f32(name: str, **tensors) -> None:
     """Validate what a kernel takes: CUDA, float32, contiguous, one device.
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -31,21 +31,40 @@ def ef_sparsify(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
     """g, delta: (..., n) float32; tau: (...) -- one threshold per row.
 
     Returns ``(g_sp, new_delta)``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
+    tensors launch the kernel; ``meta`` tensors (a dry run's trace) get
+    outputs of the kernel's shapes and their counts go to the active
+    counter (:mod:`repro_torch.kernels.cost`).
     """
     if g.device.type == "cpu":
         return ref.ef_sparsify_ref(g, delta, tau)
+    if g.device.type == "meta":
+        return _trace(g, delta, tau)
     return _launch(g, delta, tau)
+
+
+def _check_shapes(g, delta, tau):
+    if delta.shape != g.shape or tau.shape != g.shape[:-1]:
+        raise ValueError(f"ef_sparsify: shapes g {tuple(g.shape)}, delta "
+                         f"{tuple(delta.shape)}, tau {tuple(tau.shape)}")
+
+
+def _rows(g: torch.Tensor):
+    n = g.shape[-1]
+    return (g.numel() // n if n else 0), n
+
+
+def _trace(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
+    build.require_meta_f32("ef_sparsify", g=g, delta=delta, tau=tau)
+    _check_shapes(g, delta, tau)
+    cost.record("ef_sparsify", cost.ef_sparsify(*_rows(g)))
+    return torch.empty_like(g), torch.empty_like(g)
 
 
 def _launch(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
     global launches
     build.require_cuda_f32("ef_sparsify", g=g, delta=delta, tau=tau)
-    if delta.shape != g.shape or tau.shape != g.shape[:-1]:
-        raise ValueError(f"ef_sparsify: shapes g {tuple(g.shape)}, delta "
-                         f"{tuple(delta.shape)}, tau {tuple(tau.shape)}")
-    n = g.shape[-1]
-    m = g.numel() // n if n else 0
+    _check_shapes(g, delta, tau)
+    m, n = _rows(g)
     g_sp = torch.empty_like(g)
     new_delta = torch.empty_like(g)
     rc = build.library().ef_sparsify_launch(

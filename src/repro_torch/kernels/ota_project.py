@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, layout, ref
+from repro_torch.kernels import build, cost, layout, ref
 
 #: launches of the forward CUDA kernel since the last reset
 launches = 0
@@ -55,22 +55,35 @@ def ota_project(x: torch.Tensor, seed, s_block: int,
     """x: (..., n_blocks, c) -> (..., n_blocks, s_block).
 
     ``seed`` is an int or an int64-held uint32 tensor.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel; ``meta`` tensors get an
+    output of the kernel's shape and their counts go to the active counter
+    (:mod:`repro_torch.kernels.cost`).
     """
     if x.device.type == "cpu":
         return ref.ota_project_ref(x, seed, s_block, rademacher)
+    if x.device.type == "meta":
+        build.require_meta_f32("ota_project", x=x)
+        m, n_blocks, c = _fwd_shape(x)
+        cost.record("ota_project",
+                    cost.ota_project(m, n_blocks, c, s_block, rademacher))
+        return x.new_empty(*x.shape[:-1], s_block)
     return _launch(x, seed, s_block, rademacher)
+
+
+def _fwd_shape(x: torch.Tensor):
+    """``(m, n_blocks, c)`` of an ``(..., n_blocks, c)`` input."""
+    if x.dim() < 2:
+        raise ValueError(f"ota_project: x must be (..., n_blocks, c), got "
+                         f"{tuple(x.shape)}")
+    n_blocks, c = x.shape[-2:]
+    return (x.numel() // (n_blocks * c) if n_blocks * c else 0), n_blocks, c
 
 
 def _launch(x: torch.Tensor, seed, s_block: int,
             rademacher: bool) -> torch.Tensor:
     global launches
     build.require_cuda_f32("ota_project", x=x)
-    if x.dim() < 2:
-        raise ValueError(f"ota_project: x must be (..., n_blocks, c), got "
-                         f"{tuple(x.shape)}")
-    n_blocks, c = x.shape[-2:]
-    m = x.numel() // (n_blocks * c) if n_blocks * c else 0
+    m, n_blocks, c = _fwd_shape(x)
     y = torch.empty(*x.shape[:-1], s_block, dtype=torch.float32,
                     device=x.device)
     seed_dev = build.device_u32(seed, x.device)
@@ -90,21 +103,34 @@ def ota_project_t(y: torch.Tensor, seed, c: int,
     """y: (..., n_blocks, s_block) -> (..., n_blocks, c).
 
     ``seed`` is an int or an int64-held uint32 tensor.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel; ``meta`` tensors get an
+    output of the kernel's shape and their counts go to the active counter.
     """
     if y.device.type == "cpu":
         return ref.ota_project_t_ref(y, seed, c, rademacher)
+    if y.device.type == "meta":
+        build.require_meta_f32("ota_project_t", y=y)
+        m, n_blocks, s_block = _adj_shape(y, c)
+        cost.record("ota_project_t",
+                    cost.ota_project_t(m, n_blocks, s_block, c, rademacher))
+        return y.new_empty(*y.shape[:-1], c)
     return _launch_t(y, seed, c, rademacher)
 
 
-def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
-    global launches_t
-    build.require_cuda_f32("ota_project_t", y=y)
+def _adj_shape(y: torch.Tensor, c: int):
+    """``(m, n_blocks, s_block)`` of an ``(..., n_blocks, s_block)`` input."""
     if y.dim() < 2 or c <= 0:
         raise ValueError(f"ota_project_t: y must be (..., n_blocks, s_block) "
                          f"and c positive, got {tuple(y.shape)}, c={c}")
     n_blocks, s_block = y.shape[-2:]
     m = y.numel() // (n_blocks * s_block) if n_blocks * s_block else 0
+    return m, n_blocks, s_block
+
+
+def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
+    global launches_t
+    build.require_cuda_f32("ota_project_t", y=y)
+    m, n_blocks, s_block = _adj_shape(y, c)
     r = torch.empty(*y.shape[:-1], c, dtype=torch.float32, device=y.device)
     seed_dev = build.device_u32(seed, y.device)
     rc = build.library().ota_project_t_launch(

@@ -36,13 +36,18 @@ def as_u32(v, device=None) -> torch.Tensor:
 
 
 def splitmix32(x: torch.Tensor) -> torch.Tensor:
-    """lowbias32 finalizer on int64-held uint32 words (wrapping arithmetic)."""
-    x = (x + _GOLDEN) & MASK32
-    x = x ^ (x >> 16)
-    x = (x * _M1) & MASK32
-    x = x ^ (x >> 15)
-    x = (x * _M2) & MASK32
-    x = x ^ (x >> 15)
+    """lowbias32 finalizer on int64-held uint32 words (wrapping arithmetic).
+
+    The first add makes a new tensor; the other steps write into it."""
+    x = x + _GOLDEN
+    x &= MASK32
+    x ^= x >> 16
+    x *= _M1
+    x &= MASK32
+    x ^= x >> 15
+    x *= _M2
+    x &= MASK32
+    x ^= x >> 15
     return x
 
 
@@ -83,7 +88,8 @@ def block_matrix_ref(seed, block, s_block: int, c: int,
     h = hash3(seed, blk, rows, cols)
     scale = entry_scale(s_block)
     if rademacher:
-        return (1.0 - 2.0 * (h >> 31).to(torch.float32)) * scale
+        # 1 - 2 * sign bit, times the scale: exact, written in place
+        return (h >> 31).to(torch.float32).mul_(-2.0).add_(1.0).mul_(scale)
     h2 = splitmix32(h ^ _BOX_MULLER_SALT)
     u1 = _uniform01(h)
     u2 = _uniform01(h2)

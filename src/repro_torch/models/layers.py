@@ -117,7 +117,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                       # (half,)
     pos = positions3.float()[..., sec_id]                       # (B, L, half)
     return _rotate(x, pos * freqs)
 

@@ -31,6 +31,7 @@ Two transports carry one body and give it the same bits:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -152,6 +153,41 @@ def _me() -> _Rank:
     return me
 
 
+@contextlib.contextmanager
+def rank_context(factory: Callable[[Mesh, int], Any]):
+    """Run each rank thread that :func:`shard_map` starts from the calling
+    thread inside the context manager ``factory(mesh, rank)``, as a
+    counter of the ranks' work needs (a dispatch mode is the state of its
+    own thread and a rank thread starts without one)."""
+    prev = getattr(_local, "rank_context", None)
+    _local.rank_context = factory
+    try:
+        yield
+    finally:
+        _local.rank_context = prev
+
+
+@contextlib.contextmanager
+def observe_collectives(fn: Callable[[str, torch.Tensor], Any]):
+    """Call ``fn(kind, out)`` after each collective that the calling thread
+    makes, with the kind's name in XLA's HLO (``"all-reduce"`` for each
+    axis a :func:`psum` sums over, ``"all-gather"``) and the rank's
+    output."""
+    prev = getattr(_local, "observer", None)
+    _local.observer = fn
+    try:
+        yield
+    finally:
+        _local.observer = prev
+
+
+def _observe(kind: str, out: torch.Tensor) -> torch.Tensor:
+    fn = getattr(_local, "observer", None)
+    if fn is not None:
+        fn(kind, out)
+    return out
+
+
 def axis_index(axis: str) -> int:
     """The calling rank's coordinate along a mesh axis."""
     me = _me()
@@ -194,7 +230,8 @@ def psum(x: torch.Tensor, axis: Axes, groups=None) -> torch.Tensor:
             if select is None:
                 raise ValueError(f"psum: axis index {idx} of {ax!r} is in "
                                  f"none of the groups {groups}")
-        x = me.comm.collective(me, x, (ax,), select, _rank_order_sum)
+        x = _observe("all-reduce", me.comm.collective(
+            me, x, (ax,), select, _rank_order_sum))
     return x
 
 
@@ -202,7 +239,8 @@ def all_gather(x: torch.Tensor, axes: Axes, tiled: bool = False):
     """The ranks' ``x`` along ``axes``, stacked on a new leading dimension
     (``tiled``: concatenated along dimension 0), row-major over ``axes``."""
     me = _me()
-    out = me.comm.collective(me, x, _axes(axes), None, _stack)
+    out = _observe("all-gather",
+                   me.comm.collective(me, x, _axes(axes), None, _stack))
     return out.reshape(-1, *x.shape[1:]) if tiled else out
 
 
@@ -431,13 +469,17 @@ def _run_threads(body, mesh: Mesh, args, in_specs, timeout: float) -> list:
     outs = [None] * mesh.size
     errors = []
     lock = threading.Lock()
+    context = getattr(_local, "rank_context", None)
 
     def work(rank: int):
         coords = mesh.coords(rank)
         _local.rank = _Rank(mesh, rank, coords, comm)
+        _local.rank_context = context
         comm.baton.acquire()
         try:
-            outs[rank] = body(*_rank_args(mesh, args, in_specs, coords))
+            with (context(mesh, rank) if context is not None
+                  else contextlib.nullcontext()):
+                outs[rank] = body(*_rank_args(mesh, args, in_specs, coords))
         except BaseException as exc:          # noqa: BLE001 -- re-raised below
             with lock:
                 errors.append((rank, exc))

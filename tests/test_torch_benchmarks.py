@@ -249,7 +249,7 @@ def test_paper_repro_runs_the_named_benchmark(monkeypatch):
 
 
 def test_run_rejects_an_unknown_benchmark(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["run", "roofline"])
+    monkeypatch.setattr(sys, "argv", ["run", "fig99"])
     with pytest.raises(SystemExit, match="unknown benchmark"):
         trun.main(**CPU)
 
