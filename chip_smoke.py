@@ -218,14 +218,35 @@ Phases, one JSON line each:
             gradients, aggregation and update, tokens a second, peak
             allocated memory, finite losses, the frame power within 1 % of
             P_t; a ``torch.profiler`` trace of one more step's
-            aggregation (device busy share, top kernels); the two kernels
-            at one rank's shapes (1 x 180 912 128 of ef_sparsify, bitwise
-            plain; 1 x 44 168 blocks of ota_project, 11 042 of amp_fused,
-            the first 16 blocks bitwise plain; ms, bound and share); (b)
+            aggregation (device busy share, top kernels); the three
+            kernels at one rank's shapes of (a) and of each mesh of (c2)
+            (4 x 2 at 32 layers: 1 x 180 912 128 of ef_sparsify, bitwise
+            plain, 1 x 44 168 blocks of ota_project, 11 042 of amp_fused;
+            2 x 2 at 24: 1 x 141 582 336, 34 566, 17 283; 2 x 1 at 32: 1 x
+            361 824 256, 88 336, 44 168; the projection's first and last
+            16 blocks and the decode's first 16 bitwise plain; ms, bound
+            and share); (b)
             smollm-360m reduced, 3 steps, flat and sliced: the
             kernels against use_kernel=False, ĝ of every step, the error
             state and the params bitwise, and shard_decode on against off,
-            ĝ bitwise;
+            ĝ bitwise; (c) the step on a mesh of processes
+            (``sharding.init_process_mesh``, gloo, a ``file://`` store,
+            one process a rank on the one card, started after the build):
+            (c1) (b)'s kernel runs on a 4 x 2 mesh of 8 processes, flat
+            and sliced, every process's ĝ of every step, params, block of
+            the error state and metrics bitwise (b)'s thread mesh, with
+            one launch of ef_sparsify, ota_project and amp_fused a step in
+            each process (two in the sliced layout); (c2) (a)'s config on
+            a 2 x 2 mesh of 4 processes at 24 of the 32 layers (d =
+            283 162 560; four processes at 32 layers need more than the
+            card's memory), then on a 2 x 1 mesh of 2 at all 32, each: the first step's global_loss and the SHA-256 of every
+            process's ĝ equal to one thread-mesh step's on the same mesh,
+            run in this process once they end; two timed steps: per process
+            ms a step and its split (with the host-staged ``scatter`` of
+            the gradient blocks and ``gather`` of ĝ), tokens a second,
+            peak allocated and reserved memory, the card's used memory,
+            one launch of each main-path kernel a step, finite losses, the
+            frame power within 1 % of P_t;
 17. benchmarks
             the port's benchmark scripts (``repro_torch.benchmarks``): (a)
             ``bench_kernels`` at its full sizes (64 x 1024 -> 256, 10 AMP
@@ -273,8 +294,9 @@ chunk time with fewer repetitions: a call takes tens of ms).
 
 Each path (slice, unfused_decode, engine, sweep, channel, robust, local,
 population, each run of sharded, fedllm's and fedllm_moe's timed rounds,
-serve's rounds, the trainer's timed steps, bench_kernels) runs with every
-launch count set to 0 just before it and read just after.
+serve's rounds, the trainer's timed steps, each of its process mesh's
+runs in its own process, bench_kernels) runs with every launch count set
+to 0 just before it and read just after.
 
 The card's name and power limit are printed again before the last line,
 which is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -439,6 +461,18 @@ TRAIN_REDUCED_OTA = dict(scheme="a_dsgd", projection="blocked",
                          amp_iters=10, mean_removal_steps=3)
 TRAIN_REDUCED_CFG = dict(optimizer="adam", lr=1e-3, warmup_steps=0,
                          total_steps=50, compute_dtype="float32", remat=True)
+#: (c), the step on a mesh of processes: the reduced runs' 4 x 2 mesh of 8
+#: processes, and the published widths (c2) on (dims, layers): 2 x 2 of 4
+#: at 24 of smollm-360m's 32 layers, since each process holds its own
+#: params, Adam state, ĝ and round transients and four of them at 32
+#: layers ran out of the card (PERF.md, section 5), and 2 x 1 of 2 at all
+#: 32 (the two peak at ~35 GB reserved each); each process launches one of
+#: each main-path kernel a step (two in the sliced layout); a process's
+#: gloo timeout
+TRAIN_PG_FULL = (((2, 2), 24), ((2, 1), 32))
+TRAIN_PG_LAUNCHES = {"ef_sparsify": 1, "ota_project": 1, "ota_project_t": 0,
+                     "amp_fused": 1}
+TRAIN_PG_TIMEOUT = 300
 
 
 class CheckFailed(RuntimeError):
@@ -2912,9 +2946,9 @@ def _trainer_run(ts, stream, steps, device):
     aggregate = ts.aggregate_fn
 
     def keep_ghat(*args):
-        ghat, met = aggregate(*args)
+        ghat, met, seconds = aggregate(*args)
         ghats.append(ravel(ghat).clone())
-        return ghat, met
+        return ghat, met, seconds
 
     ts.aggregate_fn = keep_ghat
     params, opt_state, delta = ts.init_state(rng.PRNGKey(0, device=device))
@@ -2928,10 +2962,12 @@ def _trainer_run(ts, stream, steps, device):
     return params, delta, mets, ghats
 
 
-def trainer_reduced(device) -> dict:
+def trainer_reduced(device):
     """smollm-360m reduced, 3 steps on the 4 x 2 thread mesh, flat and
     sliced: the kernels bitwise their plain versions (ĝ every step, the
-    error state and the params), and shard_decode on against off (ĝ)."""
+    error state and the params), and shard_decode on against off (ĝ).
+    Returns the line's record and each layout's kernel run
+    (:func:`_run_record`)."""
     import torch
     from repro_torch.configs.base import OTAConfig, TrainConfig, get_config
     from repro_torch.convert import ravel, tree_leaves
@@ -2943,7 +2979,7 @@ def trainer_reduced(device) -> dict:
     arch = get_config("smollm_360m").reduced()
     stream = TokenStream(arch.vocab, TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH,
                          seed=0)
-    out = {}
+    out, threads = {}, {}
     for layout in ("flat", "sliced"):
         make = (trainer.make_train_step_sliced if layout == "sliced"
                 else trainer.make_train_step)
@@ -2985,6 +3021,7 @@ def trainer_reduced(device) -> dict:
               f"trainer (b) {layout}: losses {losses}")
         rec = dict(vs_plain="bitwise", global_loss=losses,
                    launches=counts["kernel"])
+        threads[layout] = _run_record(*k)
         if layout == "flat":
             sd = runs["kernel_shard_decode"]
             for i, (a, b) in enumerate(zip(k[3], sd[3])):
@@ -2993,35 +3030,59 @@ def trainer_reduced(device) -> dict:
             rec["shard_decode_vs_off"] = "bitwise"
             rec["shard_decode_launches"] = counts["kernel_shard_decode"]
         out[layout] = rec
-    return out
+    return out, threads
 
 
-def trainer_kernel_rows(device, gen) -> list:
+def _run_record(params, delta, mets, ghats) -> dict:
+    """A trainer run's params, error state, metrics and ĝ per step, on the
+    host."""
+    from repro_torch.convert import ravel, tree_leaves
+    return dict(params=ravel(params).cpu(),
+                delta=[leaf.cpu() for leaf in tree_leaves(delta)],
+                metrics=mets, ghats=[g.cpu() for g in ghats])
+
+
+def trainer_kernel_rows(device, gen, dims, n_layers: int,
+                        timed: bool = True) -> list:
     """The three kernels at one rank's shapes on the trainer's full-width
-    path: a model shard's error feedback (1 x 180 912 128, bitwise its
-    plain version) and projection (1 x 44 168 blocks of 4096 -> 1024,
-    shard 1's folded seed), and a device row's quarter of the decode under
-    shard_decode (11 042 blocks, 20 iterations, a noisy block-sparse y).
-    Times by CUDA events (2 calls) and by replay of one captured call
-    (twice); the projection's and the decode's first
-    ``TRAIN_CHECK_BLOCKS`` blocks bitwise their plain versions, whose time
-    on those blocks is recorded (on the whole shape they take tens of
-    seconds).  No ``torch.bmm`` yardstick: A would take 741 and 185 GB."""
+    path: smollm-360m at ``n_layers`` on a ``dims`` (data x model) mesh
+    with (a)'s config.  A model shard's error feedback (1 x d_pad /
+    model, bitwise its plain version) and projection (d_pad / (4096 x
+    model) blocks of 4096 -> 1024, shard 1's folded seed), and a device
+    row's share of the decode under shard_decode (the blocks over the
+    data ranks, 20 iterations, a noisy block-sparse y).  The projection's
+    first and last ``TRAIN_CHECK_BLOCKS`` blocks and the decode's first
+    are held bitwise against the plain versions, whose time on those
+    blocks is recorded (on the whole shape they take tens of seconds).
+    ``timed``: times by CUDA events (2 calls) and by replay of one
+    captured call (twice); otherwise one call by CUDA events.  No
+    ``torch.bmm`` yardstick: A would take hundreds of GB."""
     import torch
-    from repro_torch.configs.base import ota_overrides
+    from repro_torch.configs.base import get_config, ota_overrides
     from repro_torch.core.amp import amp_blocked_core
     from repro_torch.core.projection import BlockedProjector
     from repro_torch.kernels import (amp_fused, cost, ef_sparsify, ota_project,
                                      ref)
+    from repro_torch.train.trainer import abstract_params, ravel_meta
     ota = ota_overrides(FEDLLM_ARCH)
     c, iters = ota.block_size, ota.amp_iters
     s = max(2, int(round(ota.s_frac * c)))
-    nb = TRAIN_D_PAD // (c * TRAIN_MESH[0][1])
-    nq = nb // TRAIN_MESH[0][0]
+    arch = dataclasses.replace(get_config(FEDLLM_ARCH), n_layers=n_layers)
+    d, _ = ravel_meta(abstract_params(arch))
+    n_data, n_model = dims
+    nb = -(-d // (c * n_model))             # a model shard's blocks
+    nq = -(-nb // n_data)                   # a device row's decode
     k = TRAIN_CHECK_BLOCKS
     seed = int(ref.splitmix32(ref.as_u32(ota.seed) ^ ref.as_u32(1)))
-    small = dict(warmup=1, reps=2)
+    small = dict(warmup=1, reps=2) if timed else dict(warmup=0, reps=1)
     graph = dict(warmup=0, n=1, replays=2)
+    where = dict(mesh=list(dims), n_layers=n_layers)
+
+    def times(fn):
+        out = dict(kernel_ms=cuda_ms(fn, **small))
+        if timed:
+            out["graph_device_ms"] = graph_ms(fn, **graph)
+        return out
 
     n = nb * c
     g = torch.randn(1, n, generator=gen, device=device)
@@ -3032,12 +3093,9 @@ def trainer_kernel_rows(device, gen) -> list:
     check(torch.equal(sp, sp_ref) and torch.equal(nd, nd_ref),
           f"trainer ef_sparsify 1x{n}: not bitwise its plain version")
     rows = [dict(
-        kernel="ef_sparsify", shape=[1, n], tol="bitwise",
+        kernel="ef_sparsify", shape=[1, n], tol="bitwise", **where,
         max_abs_err=max(errors(sp, sp_ref)[0], errors(nd, nd_ref)[0]),
-        kernel_ms=cuda_ms(lambda: ef_sparsify.ef_sparsify(g, delta, tau),
-                          **small),
-        graph_device_ms=graph_ms(
-            lambda: ef_sparsify.ef_sparsify(g, delta, tau), **graph),
+        **times(lambda: ef_sparsify.ef_sparsify(g, delta, tau)),
         plain_ms=cuda_ms(lambda: ref.ef_sparsify_ref(g, delta, tau),
                          **small),
         library_ms=None, bound=bound(cost.ef_sparsify(1, n)))]
@@ -3051,13 +3109,20 @@ def trainer_kernel_rows(device, gen) -> list:
     check(torch.equal(y[:, :k], want), f"trainer ota_project 1x{nb}: the "
           "first blocks differ from the plain version: "
           + mismatch(y[:, :k], want, 0, 0))
+    # the last blocks, past the grid's y limit where nb exceeds it
+    ids = torch.arange(nb - k, nb, device=device)
+    tail = ref.contract("bsc,...bc->...bs",
+                        ref.block_matrix_ref(seed, ids, s, c, True),
+                        x[:, nb - k:])
+    check(torch.equal(y[:, nb - k:], tail), f"trainer ota_project 1x{nb}: "
+          "the last blocks differ from the plain version: "
+          + mismatch(y[:, nb - k:], tail, 0, 0))
     rows.append(dict(
-        kernel="ota_project", shape=[1, nb, c, s], tol="bitwise",
-        checked_blocks=k, max_abs_err=errors(y[:, :k], want)[0],
-        kernel_ms=cuda_ms(lambda: ota_project.ota_project(x, seed, s, True),
-                          **small),
-        graph_device_ms=graph_ms(
-            lambda: ota_project.ota_project(x, seed, s, True), **graph),
+        kernel="ota_project", shape=[1, nb, c, s], tol="bitwise", **where,
+        checked_blocks=2 * k,
+        max_abs_err=max(errors(y[:, :k], want)[0],
+                        errors(y[:, nb - k:], tail)[0]),
+        **times(lambda: ota_project.ota_project(x, seed, s, True)),
         plain_ms_checked_blocks=cuda_ms(
             lambda: proj.project_blocks(x[:, :k]), warmup=0, reps=1),
         library_ms=None,
@@ -3076,11 +3141,8 @@ def trainer_kernel_rows(device, gen) -> list:
           + mismatch(out[:k], want, 0, 0))
     rows.append(dict(
         kernel="amp_fused", shape=[nq, s, c], iters=iters, tol="bitwise",
-        checked_blocks=k, max_abs_err=errors(out[:k], want)[0],
-        kernel_ms=cuda_ms(lambda: amp_fused.amp_decode_fused(yb, seed, c,
-                                                             **kw), **small),
-        graph_device_ms=graph_ms(
-            lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw), **graph),
+        **where, checked_blocks=k, max_abs_err=errors(out[:k], want)[0],
+        **times(lambda: amp_fused.amp_decode_fused(yb, seed, c, **kw)),
         plain_ms_checked_blocks=cuda_ms(
             lambda: amp_blocked_core(yb[:k].contiguous(), seed, c,
                                      use_kernel=False, **kw),
@@ -3088,8 +3150,304 @@ def trainer_kernel_rows(device, gen) -> list:
         library_ms=None,
         bound=bound(cost.amp_fused(1, nq, s, c, iters))))
     for rec in rows:
-        rec["bound_share"] = rec["bound"][0] / rec["graph_device_ms"]
+        rec["bound_share"] = rec["bound"][0] / rec.get("graph_device_ms",
+                                                       rec["kernel_ms"])
     return rows
+
+
+def _sha256(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def trainer_pg_reduced(mesh, device) -> dict:
+    """(c1) in one process: trainer_reduced's kernel runs, flat and sliced,
+    on this rank of the 4 x 2 process mesh, with this process's
+    launches."""
+    from repro_torch.configs.base import OTAConfig, TrainConfig, get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+    arch = get_config("smollm_360m").reduced()
+    stream = TokenStream(arch.vocab, TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH,
+                         seed=0)
+    out = {}
+    for layout in ("flat", "sliced"):
+        make = (trainer.make_train_step_sliced if layout == "sliced"
+                else trainer.make_train_step)
+        ts = make(arch, TrainConfig(**TRAIN_REDUCED_CFG),
+                  OTAConfig(**TRAIN_REDUCED_OTA, use_kernel=True), mesh,
+                  device=device)
+        ops.reset_launches()
+        run = _trainer_run(ts, stream, TRAIN_REDUCED_STEPS, device)
+        out[layout] = dict(_run_record(*run), launches=ops.launch_counts())
+    return out
+
+
+def _pg_step(mesh, device, n_layers: int):
+    """(c2)'s train step on ``mesh``: (a)'s config at ``n_layers`` of
+    smollm-360m's layers."""
+    from repro_torch.configs.base import TrainConfig, get_config, ota_overrides
+    from repro_torch.train.trainer import make_train_step
+    arch = dataclasses.replace(get_config(FEDLLM_ARCH), n_layers=n_layers)
+    ota = dataclasses.replace(ota_overrides(FEDLLM_ARCH), use_kernel=True,
+                              shard_decode=True)
+    return make_train_step(arch, TrainConfig(), ota, mesh,
+                           ota_axes=("data",), device=device)
+
+
+def trainer_pg_full(mesh, device, n_layers: int) -> dict:
+    """(c2) in one process: this rank of the process mesh at ``n_layers``,
+    one untimed step (its global_loss, the SHA-256 of ĝ's bytes, and the
+    peak allocated memory of each of its phases 1 and 2 above what the
+    process held when the phase began) and the timed ones."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import rng
+    from repro_torch.convert import ravel
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    ts = _pg_step(mesh, device, n_layers)
+    stream = TokenStream(ts.arch.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats(device)
+    params, opt_state, delta = ts.init_state(rng.PRNGKey(0, device=device))
+    state_gb = torch.cuda.memory_allocated(device) / 1e9
+    digests, peaks, phase_gb = [], [], {}
+    grads, aggregate = ts.grads_fn, ts.aggregate_fn
+
+    def measured(name, fn):
+        def run(*args):
+            torch.cuda.synchronize(device)
+            held = torch.cuda.memory_allocated(device)
+            peaks.append((torch.cuda.max_memory_allocated(device),
+                          torch.cuda.max_memory_reserved(device)))
+            torch.cuda.reset_peak_memory_stats(device)
+            out = fn(*args)
+            torch.cuda.synchronize(device)
+            phase_gb[name] = dict(
+                held_gb=held / 1e9,
+                peak_above_gb=(torch.cuda.max_memory_allocated(device)
+                               - held) / 1e9)
+            return out
+        return run
+
+    def first_ghat(*args):
+        ghat, met, seconds = aggregate(*args)
+        digests.append(_sha256(ravel(ghat)))
+        return ghat, met, seconds
+
+    ts.grads_fn = measured("grads", grads)
+    ts.aggregate_fn = measured("aggregate", first_ghat)
+    fn = ts.jitted({"tokens": None})
+    params, opt_state, delta, met = fn(params, opt_state, delta,
+                                       stream.batch_at(0), 0,
+                                       rng.PRNGKey(0, device=device))
+    ts.grads_fn, ts.aggregate_fn = grads, aggregate
+    losses = [float(met["global_loss"])]
+    ms, splits, powers = [], [], []
+    ops.reset_launches()
+    for step in range(1, 1 + TRAIN_TIMED):
+        batch = stream.batch_at(step)
+        key = rng.PRNGKey(step, device=device)
+        (params, opt_state, delta, met), t_ms = _events_ms(
+            lambda: fn(params, opt_state, delta, batch, step, key))
+        ms.append(t_ms)
+        splits.append({k: v * 1e3 for k, v in ts.split.items()})
+        losses.append(float(met["global_loss"]))
+        powers.append((float(met["frame_power"]), float(met["p_t"])))
+    launches = ops.launch_counts()
+    free, total = torch.cuda.mem_get_info(device)
+    peaks.append((torch.cuda.max_memory_allocated(device),
+                  torch.cuda.max_memory_reserved(device)))
+    rank = dist.get_rank()
+    return dict(rank=rank, coords=list(mesh.coords(rank)),
+                device=str(device), d_pad=ts.d_pad,
+                delta_block=list(delta.shape), ghat_sha256=digests[0],
+                global_loss=losses, ms_per_step=ms, split_ms=splits,
+                tokens_per_s=[TRAIN_BATCH * TRAIN_SEQ / (t / 1e3)
+                              for t in ms],
+                frame_power_vs_p_t=powers, launches=launches,
+                state_gb=state_gb, first_step_phases=phase_gb,
+                peak_allocated_gb=max(a for a, _ in peaks) / 1e9,
+                peak_reserved_gb=max(r for _, r in peaks) / 1e9,
+                card_used_gb=(total - free) / 1e9,
+                final_metrics={k: float(v) for k, v in met.items()})
+
+
+def trainer_pg_worker(rank: int, shape: str, store: str, part: str,
+                      out_path: str) -> None:
+    """One rank of (c)'s gloo process mesh of ``shape`` (``DxM``) (run in
+    its own process by :func:`run_trainer_processes`): ``part`` is
+    ``reduced``, or ``full:L`` for (c2) at L layers."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import sharding
+    dims = tuple(int(n) for n in shape.split("x"))
+    mesh = sharding.init_process_mesh(
+        dims, TRAIN_MESH[1], rank=rank, world_size=math.prod(dims),
+        init_method="file://" + store, timeout=TRAIN_PG_TIMEOUT)
+    try:
+        device = sharding.process_device(None)
+        if part == "reduced":
+            rec = trainer_pg_reduced(mesh, device)
+        else:
+            rec = trainer_pg_full(mesh, device, int(part.split(":")[1]))
+        torch.save(rec, out_path)
+    finally:
+        sharding.close_process_mesh()
+
+
+def run_trainer_processes(part: str, dims) -> list:
+    """A process of :func:`trainer_pg_worker` for each rank of a mesh of
+    ``dims`` on the card, a ``file://`` store; each process's record.  Any
+    rank that fails fails the phase.  The processes share the one card, so
+    each allocator maps its blocks in expandable segments (less memory
+    held in fragments)."""
+    import tempfile
+    import torch
+    world = math.prod(dims)
+    shape = "x".join(str(n) for n in dims)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.pt" for r in range(world)]
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.trainer_pg_worker("
+                "int(sys.argv[2]), *sys.argv[3:7])")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(ROOT), str(r), shape,
+             str(Path(tmp) / "store"), part, str(outs[r])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=900)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"trainer (c) {part}: a process-mesh rank failed:\n"
+              + "\n".join(log[-3000:] for log in logs))
+        return [torch.load(o) for o in outs]
+
+
+def trainer_processes_reduced(threads) -> dict:
+    """(c1): the reduced runs on 8 processes, every process bitwise the
+    thread mesh's kernel runs of (b) (ĝ every step, the params, its block
+    of the error state, the metrics), with exactly one launch of each
+    main-path kernel a step (two in the sliced layout)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.sharding import Mesh, P
+    mesh = Mesh(*TRAIN_MESH)
+    specs = {"flat": [P("data", "model")],
+             "sliced": [P("data", None), P("data", "model", None)]}
+    t0 = time.perf_counter()
+    got = run_trainer_processes("reduced", mesh.shape)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for layout, want in threads.items():
+        subframes = 2 if layout == "sliced" else 1
+        per = {k: v * subframes * TRAIN_REDUCED_STEPS
+               for k, v in TRAIN_PG_LAUNCHES.items()}
+        for rank, rec in enumerate(got):
+            rec = rec[layout]
+            what = f"trainer (c1) {layout}, rank {rank}"
+            check(rec["launches"] == per,
+                  f"{what}: launches {rec['launches']}, expected {per}")
+            check(len(rec["ghats"]) == TRAIN_REDUCED_STEPS and all(
+                torch.equal(a, b) for a, b in zip(rec["ghats"],
+                                                  want["ghats"])),
+                  f"{what}: ĝ differs from the thread mesh's")
+            check(torch.equal(rec["params"], want["params"]),
+                  f"{what}: params differ from the thread mesh's")
+            coords = mesh.coords(rank)
+            check(all(torch.equal(a, sharding.local_block(mesh, b, spec,
+                                                          coords))
+                      for a, b, spec in zip(rec["delta"], want["delta"],
+                                            specs[layout])),
+                  f"{what}: its error block differs from the thread mesh's")
+            check(rec["metrics"] == want["metrics"],
+                  f"{what}: metrics differ from the thread mesh's")
+        out[layout] = dict(vs_thread_mesh="bitwise",
+                           launches_per_process=per)
+    return dict(mesh=dict(zip(TRAIN_MESH[1], TRAIN_MESH[0])),
+                processes=mesh.size, steps=TRAIN_REDUCED_STEPS,
+                seconds=seconds, **out)
+
+
+def trainer_thread_first_step(device, dims, n_layers: int) -> dict:
+    """One step of (c2)'s config at ``n_layers`` on a thread mesh of
+    ``dims`` in this process: its global_loss and the SHA-256 of ĝ's
+    bytes."""
+    from repro_torch import rng
+    from repro_torch.convert import ravel
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.sharding import Mesh
+    ts = _pg_step(Mesh(dims, TRAIN_MESH[1]), device, n_layers)
+    stream = TokenStream(ts.arch.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    params, opt_state, delta = ts.init_state(rng.PRNGKey(0, device=device))
+    gstack, met, _ = ts.grads_fn(params, stream.batch_at(0))
+    ghat, _, _ = ts.aggregate_fn(gstack, delta, 0,
+                                 rng.PRNGKey(0, device=device), delta)
+    out = dict(global_loss=float(met["global_loss"]),
+               ghat_sha256=_sha256(ravel(ghat)))
+    del params, opt_state, delta, gstack, ghat
+    free_device_memory()
+    return out
+
+
+def trainer_processes_full(device, dims, n_layers: int) -> dict:
+    """(c2) on one mesh: smollm-360m at its published widths and
+    ``n_layers`` of its layers on ``dims`` processes; the first step's
+    global_loss and every process's ĝ digest equal to one thread-mesh
+    step's, run in this process after the processes end (the card is
+    theirs while they run); per process ms a step and its split, tokens a
+    second, peak memory, launches, the frame power within 1 % of P_t."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    world = math.prod(dims)
+    gc.collect()                # what earlier phases left in cycles
+    free_device_memory()
+    free, total = torch.cuda.mem_get_info()
+    card_before = (total - free) / 1e9
+    t0 = time.perf_counter()
+    recs = run_trainer_processes(f"full:{n_layers}", dims)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = trainer_thread_first_step(device, dims, n_layers)
+    thread_s = time.perf_counter() - t0
+    per = {k: v * TRAIN_TIMED for k, v in TRAIN_PG_LAUNCHES.items()}
+    shape = "x".join(map(str, dims))
+    for rec in recs:
+        what = f"trainer (c2) {shape} at {n_layers} layers, rank {rec['rank']}"
+        check(rec["global_loss"][0] == want["global_loss"],
+              f"{what}: first global_loss {rec['global_loss'][0]} against "
+              f"the thread mesh's {want['global_loss']}")
+        check(rec["ghat_sha256"] == want["ghat_sha256"],
+              f"{what}: ĝ differs from the thread mesh's")
+        check(rec["launches"] == per,
+              f"{what}: launches {rec['launches']}, expected {per}")
+        check(all(map(math.isfinite, rec["global_loss"])),
+              f"{what}: losses {rec['global_loss']}")
+        check(all(abs(fp - pt) <= 0.01 * pt
+                  for fp, pt in rec["frame_power_vs_p_t"]),
+              f"{what}: frame power against P_t {rec['frame_power_vs_p_t']}")
+    launches = {k: sum(r["launches"][k] for r in recs) for k in per}
+    layers = get_config(FEDLLM_ARCH).n_layers
+    return dict(mesh=dict(zip(TRAIN_MESH[1], dims)), n_layers=n_layers,
+                d_pad=recs[0]["d_pad"],
+                reduced=([] if n_layers == layers else
+                         [f"n_layers {n_layers} of {layers}: {world} "
+                          "processes' peaks at full depth exceed the card"]),
+                processes=world, transport="gloo, one process a rank on "
+                "the one card", vs_thread_mesh="first step bitwise "
+                "(global_loss, SHA-256 of ĝ)", thread_first_step=want,
+                thread_step_s=thread_s, seconds=seconds, launches=launches,
+                card_used_before_gb=card_before, ranks=recs)
 
 
 def run_trainer_phase(device) -> dict:
@@ -3140,7 +3498,7 @@ def run_trainer_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated()
     # where phase 2's time goes: one more step's aggregation, traced
     step = 1 + TRAIN_TIMED
-    gstack, _ = ts.grads_fn(params, stream.batch_at(step))
+    gstack, _, _ = ts.grads_fn(params, stream.batch_at(step))
     key = rng.PRNGKey(step, device=device)
     aggregate_trace = device_busy(lambda: ts.aggregate_fn(
         gstack, delta, step, key, delta))
@@ -3158,15 +3516,28 @@ def run_trainer_phase(device) -> dict:
     free_device_memory()
     full_s = time.perf_counter() - t_phase
 
-    # the two kernels at one rank's shapes of (a)
+    # the kernels at one rank's shapes of (a), then of each mesh of (c2)
     gen = torch.Generator(device=device)
     gen.manual_seed(24)
-    kernel_rows = trainer_kernel_rows(device, gen)
+    kernel_rows = trainer_kernel_rows(device, gen, TRAIN_MESH[0],
+                                      arch.n_layers)
     free_device_memory()
+    for dims, n_layers in TRAIN_PG_FULL:
+        kernel_rows += trainer_kernel_rows(device, gen, dims, n_layers,
+                                           timed=False)
+        free_device_memory()
 
     # (b) reduced, kernels against plain and shard_decode on against off
     t1 = time.perf_counter()
-    reduced = trainer_reduced(device)
+    reduced, threads = trainer_reduced(device)
+    reduced_s = time.perf_counter() - t1
+    free_device_memory()
+    # (c) the step on a mesh of processes, started after the build
+    processes = dict(reduced=trainer_processes_reduced(threads), full=[])
+    for dims, n_layers in TRAIN_PG_FULL:
+        free_device_memory()
+        processes["full"].append(trainer_processes_full(device, dims,
+                                                        n_layers))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     return dict(
         phase="trainer", arch=FEDLLM_ARCH, d=ts.d, d_pad=ts.d_pad,
@@ -3186,8 +3557,8 @@ def run_trainer_phase(device) -> dict:
         aggregate_trace=aggregate_trace, kernel_rows=kernel_rows,
         launches=launches,
         launches_per_step={k: v // TRAIN_TIMED for k, v in launches.items()},
-        full_width_s=full_s, reduced=reduced,
-        reduced_s=time.perf_counter() - t1)
+        full_width_s=full_s, reduced=reduced, reduced_s=reduced_s,
+        processes=processes)
 
 
 # ---------------------------------------------------------------------------
@@ -3275,7 +3646,8 @@ def _trainer_against_roofline(rec: dict, tr: dict) -> dict:
         collective_s=whole["collective_bytes"]["total"] / mesh_lib.HBM_BW)
     measured_ms = tr["ms_per_step"]
     split = tr["split_ms"]
-    by_kernel = {r["kernel"]: r for r in tr["kernel_rows"]}
+    by_kernel = {r["kernel"]: r for r in tr["kernel_rows"]
+                 if r["mesh"] == list(TRAIN_MESH[0])}
     kernels = {}
     for name, k in rec["kernels"].items():
         calls = k["calls"]
@@ -3673,7 +4045,11 @@ def main() -> int:
              "local": lo["launches"], "population": po["launches"],
              "sharded": sd["launches"], "fedllm": fl["launches"],
              "fedllm_moe": fm["launches"], "serve": sv["launches"],
-             "trainer": tr["launches"], "benchmarks": bm["launches"]}
+             "trainer": tr["launches"],
+             "trainer_processes": {
+                 k: sum(f["launches"][k] for f in tr["processes"]["full"])
+                 for k in TRAIN_PG_LAUNCHES},
+             "benchmarks": bm["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         chk = main_checks[name]
@@ -3714,8 +4090,9 @@ def main() -> int:
                                    "library_graph_ms")}
                 for r in bm["bench_kernels"]["rows"] if r["kernel"] == name]
         if name != "ota_project_t":
-            kernels[-1]["trainer_rank_shape"] = next(
-                r for r in tr["kernel_rows"] if r["kernel"] == name)
+            rows = [r for r in tr["kernel_rows"] if r["kernel"] == name]
+            kernels[-1]["trainer_rank_shape"] = rows[0]
+            kernels[-1]["trainer_process_rank_shapes"] = rows[1:]
         if name in ("ota_project", "amp_fused"):
             one = sharded_shapes[0 if name == "ota_project" else 1]
             kernels[-1]["sharded_rank_shape"] = {

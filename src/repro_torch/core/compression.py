@@ -72,6 +72,16 @@ def sampled_topk_threshold(v: torch.Tensor, k: int, key=None,
     return _quantile_linear(sample, 1.0 - (k / d))
 
 
+def error_feedback(g: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """g^ec = g + Delta (paper Alg. 1 line 5)."""
+    return g + delta
+
+
+def residual(g_ec: torch.Tensor, g_sp: torch.Tensor) -> torch.Tensor:
+    """Delta' = g^ec - g^sp (paper eq. 10)."""
+    return g_ec - g_sp
+
+
 # ---------------------------------------------------------------------------
 # digital baselines (paper §III, §VI): quantize to the bit budget q_t
 # ---------------------------------------------------------------------------

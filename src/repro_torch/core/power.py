@@ -37,3 +37,10 @@ def schedule_array(total_steps: int, p_avg: float, schedule: str) -> np.ndarray:
     ps = [float(power_at(np.int64(t), total_steps, p_avg, schedule))
           for t in range(total_steps)]
     return np.asarray(ps, np.float64)
+
+
+def verify_average_power(ps: np.ndarray, p_avg: float,
+                         tol: float = 1e-6) -> bool:
+    """Whether a schedule's mean power stays within ``p_avg`` (up to a
+    relative ``tol``)."""
+    return float(ps.mean()) <= p_avg * (1 + tol)

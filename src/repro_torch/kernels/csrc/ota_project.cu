@@ -10,8 +10,9 @@
 //
 // A_b is never stored.  The work is cut four ways (kernels/layout.py):
 //
-//   grid    = (CS * G, n_blocks, ceil(s_block / 128)), clusters of CS CTAs
-//             along x (CS = 8 at c = 4096; G device groups);
+//   grid    = (CS * G, min(n_blocks, 65 535), ceil(s_block / 128)), clusters
+//             of CS CTAs along x (CS = 8 at c = 4096; G device groups); a
+//             CTA takes blocks blockIdx.y, + gridDim.y, ... in turn;
 //   cluster = one block b, one group of devices, one 128-row tile: CTA
 //             rank q owns the columns [q c / CS, (q+1) c / CS);
 //   CTA     = 4 warps, each a contiguous quarter of the CTA's columns;
@@ -55,6 +56,7 @@ constexpr int kTileRows = 32 * kRows;      // layout.py OTA_TILE_ROWS
 constexpr int kMaxDevices = 8;             // layout.py OTA_MAX_DEVICES
 constexpr int kMaxCluster = 8;             // layout.py OTA_MAX_CLUSTER
 constexpr int kChunk = 128;                // staged columns per warp and pass
+constexpr int kMaxGridY = 65535;           // the grid's y limit; more blocks loop
 
 // Start of part k of n items cut into `parts` (layout.py::cut).
 __device__ __forceinline__ int cut(int n, int parts, int k) {
@@ -153,27 +155,31 @@ ota_project_kernel(const float* __restrict__ x, const uint32_t* __restrict__ see
   static_assert(kChunk <= kTileRows, "x chunks must fit the partials' buffer");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int group = blockIdx.x / CS, b = blockIdx.y;
+  const int group = blockIdx.x / CS;
   const int d0 = cut(m, groups, group), nd = cut(m, groups, group + 1) - d0;
-  const uint32_t hb = block_hash(*seed_p, static_cast<uint32_t>(b));
-#define REPRO_TILE(MD)                                                                \
-  case MD:                                                                            \
-    tile<MD, RAD>(x, y, buf, cpart, cluster, rank, CS, hb, d0, b, n_blocks, c, s_block, \
-                  scale);                                                             \
+  // blocks b, b + gridDim.y, ...: a launch of more blocks than the grid's
+  // y limit (65 535) loops; every CTA of a cluster takes the same blocks
+  for (int b = blockIdx.y; b < n_blocks; b += gridDim.y) {
+    const uint32_t hb = block_hash(*seed_p, static_cast<uint32_t>(b));
+#define REPRO_TILE(MD)                                                                  \
+  case MD:                                                                              \
+    tile<MD, RAD>(x, y, buf, cpart, cluster, rank, CS, hb, d0, b, n_blocks, c, s_block,   \
+                  scale);                                                               \
     break;
-  switch (nd) {
-    REPRO_TILE(1)
-    REPRO_TILE(2)
-    REPRO_TILE(3)
-    REPRO_TILE(4)
-    REPRO_TILE(5)
-    REPRO_TILE(6)
-    REPRO_TILE(7)
-    REPRO_TILE(8)
-    default:
-      break;
-  }
+    switch (nd) {
+      REPRO_TILE(1)
+      REPRO_TILE(2)
+      REPRO_TILE(3)
+      REPRO_TILE(4)
+      REPRO_TILE(5)
+      REPRO_TILE(6)
+      REPRO_TILE(7)
+      REPRO_TILE(8)
+      default:
+        break;
+    }
 #undef REPRO_TILE
+  }
 }
 
 }  // namespace
@@ -187,7 +193,7 @@ extern "C" int ota_project_launch(const float* x, const uint32_t* seed, float* y
   if (CS < 1 || CS > kMaxCluster || groups < 1 || (m + groups - 1) / groups > kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (s_block + kTileRows - 1) / kTileRows;
-  if (n_blocks > 65535 || tiles > 65535 || static_cast<int64_t>(CS) * groups > 0x7fffffff)
+  if (tiles > 65535 || static_cast<int64_t>(CS) * groups > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
 
   cudaLaunchConfig_t cfg = {};
@@ -196,7 +202,7 @@ extern "C" int ota_project_launch(const float* x, const uint32_t* seed, float* y
   attr[0].val.clusterDim.x = CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(static_cast<unsigned>(CS * groups), n_blocks, tiles);
+  cfg.gridDim = dim3(static_cast<unsigned>(CS * groups), min(n_blocks, kMaxGridY), tiles);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -11,10 +11,11 @@
 //
 // The work is cut four ways (kernels/layout.py):
 //
-//   grid    = (CS * tiles, n_blocks, groups), clusters of CS CTAs along x
-//             (CS = 8 at s_block = 1024, each CTA at least 128 rows; tiles
-//             of 256 columns; device groups of at most 8, near-equal:
-//             25 -> 6, 6, 6, 7);
+//   grid    = (CS * tiles, min(n_blocks, 65 535), groups), clusters of CS
+//             CTAs along x (CS = 8 at s_block = 1024, each CTA at least 128
+//             rows; tiles of 256 columns; device groups of at most 8,
+//             near-equal: 25 -> 6, 6, 6, 7); a CTA takes blocks blockIdx.y,
+//             + gridDim.y, ... in turn;
 //   cluster = one block b, one tile, one group of devices: CTA rank q owns
 //             the rows [q s / CS, (q+1) s / CS);
 //   CTA     = 2 row groups of 128 threads, each a contiguous half of the
@@ -66,6 +67,7 @@ constexpr int kTileCols = kColThreads * kCols;   // layout.py OTA_T_TILE_COLS
 constexpr int kMaxDevices = 8;                 // layout.py OTA_MAX_DEVICES
 constexpr int kMaxCluster = 8;                 // layout.py OTA_T_MAX_CLUSTER
 constexpr int kChunk = 128;                    // staged rows per group and pass
+constexpr int kMaxGridY = 65535;               // the grid's y limit; more blocks loop
 static_assert(kChunk % 4 == 0, "rows are read four at a time");
 static_assert(kGroups * kChunk >= kTileCols, "the staging buffer holds the partials too");
 
@@ -194,28 +196,32 @@ ota_project_t_kernel(const float* __restrict__ y, const uint32_t* __restrict__ s
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int col0 = static_cast<int>(blockIdx.x / CS) * kTileCols;
-  const int b = blockIdx.y, group = blockIdx.z;
+  const int group = blockIdx.z;
   const int d0 = cut(m, groups, group), nd = cut(m, groups, group + 1) - d0;
-  const uint32_t hb = block_hash(*seed_p, static_cast<uint32_t>(b));
+  // blocks b, b + gridDim.y, ...: a launch of more blocks than the grid's
+  // y limit (65 535) loops; every CTA of a cluster takes the same blocks
+  for (int b = blockIdx.y; b < n_blocks; b += gridDim.y) {
+    const uint32_t hb = block_hash(*seed_p, static_cast<uint32_t>(b));
 #define REPRO_TILE(MD)                                                                     \
   case MD:                                                                                 \
     if constexpr (MD <= MDMAX)                                                             \
       tile<MD, RAD>(y, r, hr, buf, cluster, rank, CS, hb, d0, b, n_blocks, s_block, c,     \
                     col0, scale);                                                          \
     break;
-  switch (nd) {
-    REPRO_TILE(1)
-    REPRO_TILE(2)
-    REPRO_TILE(3)
-    REPRO_TILE(4)
-    REPRO_TILE(5)
-    REPRO_TILE(6)
-    REPRO_TILE(7)
-    REPRO_TILE(8)
-    default:
-      break;
-  }
+    switch (nd) {
+      REPRO_TILE(1)
+      REPRO_TILE(2)
+      REPRO_TILE(3)
+      REPRO_TILE(4)
+      REPRO_TILE(5)
+      REPRO_TILE(6)
+      REPRO_TILE(7)
+      REPRO_TILE(8)
+      default:
+        break;
+    }
 #undef REPRO_TILE
+  }
 }
 
 template <int MDMAX>
@@ -241,7 +247,7 @@ extern "C" int ota_project_t_launch(const float* y, const uint32_t* seed, float*
   if (CS < 1 || CS > kMaxCluster || groups < 1 || widest > kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = (static_cast<int64_t>(c) + kTileCols - 1) / kTileCols;
-  if (n_blocks > 65535 || groups > 65535 || tiles * CS > 0x7fffffff)
+  if (groups > 65535 || tiles * CS > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
 
   cudaLaunchConfig_t cfg = {};
@@ -250,7 +256,7 @@ extern "C" int ota_project_t_launch(const float* y, const uint32_t* seed, float*
   attr[0].val.clusterDim.x = CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles * CS), n_blocks, groups);
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * CS), min(n_blocks, kMaxGridY), groups);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);

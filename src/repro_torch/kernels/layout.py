@@ -42,6 +42,10 @@ OTA_T_TILE_COLS = OTA_T_COLUMN_THREADS * OTA_T_COLS_PER_THREAD
 OTA_T_MAX_CLUSTER = 8
 OTA_T_MIN_ROWS = 128
 
+#: the grid's y limit: ``ota_project`` and ``ota_project_t`` put blocks on
+#: y and loop over more of them
+GRID_Y_MAX = 65535
+
 
 def cut(n: int, parts: int, k: int) -> int:
     """Start of part ``k`` of ``n`` items cut into ``parts`` near-equal,
@@ -147,7 +151,9 @@ def ota_t_column_tiles(c: int) -> list[tuple[int, int]]:
 
 
 def ota_t_grid(m: int, n_blocks: int, s: int, c: int) -> tuple[int, int, int]:
-    """Grid of ota_project_t: (clusters' CTAs over the column tiles, blocks,
-    device groups)."""
-    return (ota_t_cluster_size(s) * len(ota_t_column_tiles(c)), n_blocks,
+    """Grid of ota_project_t: (clusters' CTAs over the column tiles, blocks
+    up to the grid's y limit, device groups); past the limit a CTA takes
+    blocks ``y``, ``y + GRID_Y_MAX``, ... in turn."""
+    return (ota_t_cluster_size(s) * len(ota_t_column_tiles(c)),
+            min(n_blocks, GRID_Y_MAX),
             ota_device_groups(m))

@@ -1,25 +1,34 @@
 """End-to-end training driver, the port of the reference's
 ``repro/launch/train.py``.
 
-Selects an architecture config (full or ``--reduced``), builds the mesh of
-rank threads, the OTA aggregator and the token pipeline, and runs the
-sharded train step (:mod:`repro_torch.train.trainer`) for ``--steps``
-steps with periodic metrics and an optional checkpoint at the end.
+Selects an architecture config (full or ``--reduced``), builds the mesh,
+the OTA aggregator and the token pipeline, and runs the sharded train step
+(:mod:`repro_torch.train.trainer`) for ``--steps`` steps with periodic
+metrics and an optional checkpoint at the end.
 
 The flags are the reference's, with one change: ``--device`` (the card
 unless given, ``cpu`` for the CPU) takes the place of ``--devices``, the
-reference's count of forced host devices.  A mesh of rank threads takes
-any shape on one device, so no device count is needed.
+reference's count of forced host devices.  Run alone, the mesh is one of
+rank threads, which takes any shape on one device.  Under ``torchrun``
+(``WORLD_SIZE`` in the environment) each process is one rank of a gloo
+process-group mesh of ``WORLD_SIZE`` ranks on its own card
+(``LOCAL_RANK``'s, :func:`repro_torch.sharding.process_device`), the
+counterpart of ``jax.make_mesh`` over the devices jax sees; rank 0 prints
+and writes ``--ckpt``.
 
   python -m repro_torch.launch.train --arch smollm_360m --reduced \\
       --mesh 4x2 --steps 200 --aggregator a_dsgd --device cpu
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --mesh 2x2 --steps 5
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from repro_torch import rng
+from repro_torch import sharding
 from repro_torch.configs import get_config
 from repro_torch.configs.base import OTAConfig, TrainConfig
 from repro_torch.data.synthetic import TokenStream
@@ -55,7 +64,28 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     dims = [int(x) for x in args.mesh.split("x")]
     names = ("pod", "data", "model")[-len(dims):]
-    mesh = Mesh(tuple(dims), names)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _train(args, Mesh(tuple(dims), names), names, dims, True)
+    # one rank of a process group: its card first (no card and no
+    # --device cpu raises before the group is joined)
+    sharding.process_device(args.device)
+    rank = int(os.environ["RANK"])
+    mesh = sharding.init_process_mesh(dims, names, rank=rank,
+                                      world_size=world, init_method="env://")
+    try:
+        return _train(args, mesh, names, dims, rank == 0)
+    finally:
+        sharding.close_process_mesh()
+
+
+def _train(args, mesh, names, dims, lead: bool) -> int:
+    """The run on ``mesh``; ``lead``: this process prints and writes the
+    checkpoint."""
+    def say(text):
+        if lead:
+            print(text, flush=True)
+
     arch = get_config(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -72,9 +102,9 @@ def main(argv=None) -> int:
                 else tuple(a for a in names if a in ("pod", "data")))
     ts = make_train_step(arch, train_cfg, ota, mesh, ota_axes=ota_axes,
                          device=args.device)
-    print(f"[train] arch={arch.name} d={ts.d:,} M={ts.m_devices} "
-          f"mesh={dict(zip(names, dims))} ota_axes={ota_axes} "
-          f"device={ts.device}", flush=True)
+    say(f"[train] arch={arch.name} d={ts.d:,} M={ts.m_devices} "
+        f"mesh={dict(zip(names, dims))} ota_axes={ota_axes} "
+        f"device={ts.device}")
 
     params, opt_state, delta = ts.init_state(rng.PRNGKey(0))
     stream = TokenStream(vocab=arch.vocab, seq_len=args.seq,
@@ -87,13 +117,13 @@ def main(argv=None) -> int:
             params, opt_state, delta, batch, step,
             rng.PRNGKey(step, device=ts.device))
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {float(met['global_loss']):.4f}  "
-                  f"ppl {float(met['ppl']):.1f}  "
-                  f"{(time.time() - t0) / (step + 1):.2f}s/step", flush=True)
-    if args.ckpt:
+            say(f"step {step:5d}  loss {float(met['global_loss']):.4f}  "
+                f"ppl {float(met['ppl']):.1f}  "
+                f"{(time.time() - t0) / (step + 1):.2f}s/step")
+    if args.ckpt and lead:
         save_checkpoint(args.ckpt, {"params": params, "opt": opt_state},
                         step=args.steps)
-        print(f"[train] checkpoint -> {args.ckpt}")
+        say(f"[train] checkpoint -> {args.ckpt}")
     return 0
 
 

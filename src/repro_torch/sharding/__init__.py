@@ -25,14 +25,20 @@ Two transports carry one body and give it the same bits:
   so every other rank raises too, and the barrier has a timeout, so a rank
   that never arrives cannot hang the others.
 * **a torch.distributed process group** (:func:`init_process_mesh`): one
-  process per rank, the mesh a ``DeviceMesh`` over a gloo group, each
-  collective an ``all_gather_into_tensor`` over the axis's group followed
-  by the same rank-order sum.
+  process per rank, each on its own device (:func:`process_device`), the
+  mesh a ``DeviceMesh`` over a gloo group, each collective an
+  ``all_gather_into_tensor`` over the axis's group followed by the same
+  rank-order sum.  A process can also run its rank on blocks it already
+  holds (:func:`process_rank`, or :func:`shard_map` with ``held``);
+  :func:`scatter` then hands a group's first member's blocks to the
+  others, and :func:`from_rank0` gives every process rank 0's values, as a
+  replicated ``P()`` output does.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import threading
 import time
 import warnings
@@ -81,6 +87,11 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def processes(self) -> bool:
+        """Whether each rank is a process of a process group."""
+        return self.device_mesh is not None
+
     def axis_size(self, axis: str) -> int:
         return self.shape[self._dim(axis)]
 
@@ -112,7 +123,7 @@ class Mesh:
             idx, n = idx * self.shape[d] + coords[d], n * self.shape[d]
         return idx, n
 
-    def _members(self, rank: int, axes: Tuple[str, ...]) -> list:
+    def members(self, rank: int, axes: Tuple[str, ...]) -> list:
         """The ranks that share ``rank``'s coordinates off ``axes``,
         row-major over ``axes``."""
         coords = list(self.coords(rank))
@@ -244,6 +255,23 @@ def all_gather(x: torch.Tensor, axes: Axes, tiled: bool = False):
     return out.reshape(-1, *x.shape[1:]) if tiled else out
 
 
+def scatter(parts, axes: Axes, out: torch.Tensor) -> torch.Tensor:
+    """``out`` filled with the calling rank's block from the first member
+    of its group along ``axes`` (the rank at coordinate 0 of each of
+    them), which passes ``parts``, one block per member, row-major over
+    ``axes``; the others pass ``None``.  A copy: no sum, so no order to
+    keep.  A process-group mesh's hand-off: on a thread mesh the ranks
+    share their tensors and need none."""
+    me = _me()
+    members = me.mesh.members(me.rank, _axes(axes))
+    if (parts is not None) != (me.rank == members[0]):
+        raise ValueError("scatter: the group's first member, and only it, "
+                         "passes the blocks")
+    if not me.mesh.processes:
+        raise ValueError("scatter needs a process-group mesh")
+    return me.comm.scatter(me, parts, members, out)
+
+
 # ---------------------------------------------------------------------------
 # transports
 # ---------------------------------------------------------------------------
@@ -279,7 +307,7 @@ class _Threads:
             self.baton.acquire()
 
     def collective(self, me: _Rank, x, axes, select, fn):
-        members = self.mesh._members(me.rank, axes)
+        members = self.mesh.members(me.rank, axes)
         if select is not None:
             members = [members[i] for i in select]
         self.slots[me.rank] = x
@@ -295,9 +323,10 @@ class _Processes:
     """The process-group transport: one rank per process.
 
     gloo's ``all_gather_into_tensor`` takes host tensors only, so each
-    contribution crosses the host for the collective and the gathered
-    tensors go back to the contribution's device, where the reduction
-    runs; the rest of the body stays on its device."""
+    contribution crosses the host for the collective (over each axis of
+    more than one rank) and the gathered tensors go back to the
+    contribution's device, where the reduction runs; the rest of the body
+    stays on its device."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -305,12 +334,36 @@ class _Processes:
     def collective(self, me: _Rank, x, axes, select, fn):
         parts = x[None]
         for ax in reversed(axes):                 # the minor axis first
-            parts = _gather_host(parts, self.mesh.device_mesh.get_group(ax),
-                                 self.mesh.axis_size(ax))
+            n = self.mesh.axis_size(ax)
+            if n > 1:           # over an axis of one rank nothing travels
+                parts = _gather_host(
+                    parts, self.mesh.device_mesh.get_group(ax), n)
         members = list(parts.reshape(-1, *x.shape).unbind(0))
         if select is not None:
             members = [members[i] for i in select]
         return fn(members)
+
+    def scatter(self, me: _Rank, parts, members, out):
+        import torch.distributed as dist
+        if parts is not None:
+            out.copy_(parts[0])
+            for rank, part in zip(members[1:], parts[1:]):
+                dist.send(_wire(part), dst=rank)
+        else:
+            buf = _wire(out, empty=True)
+            dist.recv(buf, src=members[0])
+            out.copy_(buf)
+        return out
+
+
+def _wire(x: torch.Tensor, empty: bool = False) -> torch.Tensor:
+    """``x`` as gloo carries it: a contiguous host tensor, a bfloat16 one as
+    float32, which holds its values exactly (``empty``: a buffer of that
+    form to receive into)."""
+    dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    if empty:
+        return torch.empty(x.shape, dtype=dtype)
+    return x.detach().to(device="cpu", dtype=dtype).contiguous()
 
 
 def _gather_host(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -319,9 +372,7 @@ def _gather_host(x: torch.Tensor, group, n: int) -> torch.Tensor:
     for the collective; a bfloat16 tensor travels as float32, which holds
     its values exactly."""
     import torch.distributed as dist
-    wire = x.detach().reshape(1, *x.shape).to("cpu")
-    if wire.dtype == torch.bfloat16:
-        wire = wire.float()
+    wire = _wire(x).reshape(1, *x.shape)
     out = torch.empty((n, *x.shape), dtype=wire.dtype)
     with warnings.catch_warnings():
         # newer torch renames the call; the old name stays for older ones
@@ -357,6 +408,61 @@ def close_process_mesh() -> None:
     dist.destroy_process_group()
 
 
+def process_device(device=None) -> torch.device:
+    """The device of this process's rank on a process-group mesh.
+
+    The caller's ``device`` where it names one (``"cpu"``, ``"cuda:1"``);
+    otherwise card ``LOCAL_RANK`` (torchrun's variable; without it the
+    world rank) modulo the cards this process sees, so that with one card
+    every rank shares it.  A card is made the process's current one, where
+    the kernels launch.  Without a card and without ``device="cpu"`` it
+    raises, as :func:`repro_torch.device.resolve_device` does."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    if dev.index is None:
+        import torch.distributed as dist
+        local = os.environ.get("LOCAL_RANK", os.environ.get("RANK"))
+        if local is None:
+            local = dist.get_rank() if dist.is_initialized() else 0
+        dev = torch.device("cuda", int(local) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+@contextlib.contextmanager
+def process_rank(mesh: Mesh):
+    """This process's rank of a process-group mesh bound to the calling
+    thread, so that the collectives run on blocks the process already
+    holds (:func:`shard_map` slices whole inputs instead).  Yields the
+    rank's coordinates."""
+    import torch.distributed as dist
+    if not mesh.processes:
+        raise ValueError("process_rank needs a process-group mesh")
+    rank = dist.get_rank()
+    prev = getattr(_local, "rank", None)
+    _local.rank = _Rank(mesh, rank, mesh.coords(rank), _Processes(mesh))
+    try:
+        yield _local.rank.coords
+    finally:
+        _local.rank = prev
+
+
+def from_rank0(values, device) -> dict:
+    """World rank 0's ``values`` (a dict of tensors; the other processes
+    pass anything) on every process, on ``device``: what a replicated
+    ``P()`` output gives each caller.  The values cross the host
+    unchanged."""
+    import torch.distributed as dist
+    box = [None]
+    if dist.get_rank() == 0:
+        box[0] = {k: torch.as_tensor(v).detach().cpu()
+                  for k, v in values.items()}
+    dist.broadcast_object_list(box, src=0)
+    return {k: v.to(device) for k, v in box[0].items()}
+
+
 # ---------------------------------------------------------------------------
 # shard_map
 # ---------------------------------------------------------------------------
@@ -374,7 +480,22 @@ def _piece(mesh: Mesh, spec, coords) -> list:
     return out
 
 
-def _local_slice(mesh: Mesh, x, spec, coords):
+def block_shape(mesh: Mesh, shape: Sequence[int], spec) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` split by
+    ``spec`` (every rank's block has it)."""
+    out = list(shape)
+    for dim, part in enumerate(_piece(mesh, spec, mesh.coords(0))):
+        if part is not None:
+            if out[dim] % part[1]:
+                raise ValueError(f"dimension {dim} of size {out[dim]} does "
+                                 f"not split over {part[1]} ranks ({spec})")
+            out[dim] //= part[1]
+    return tuple(out)
+
+
+def local_block(mesh: Mesh, x, spec, coords):
+    """The block of the whole tensor ``x`` split by ``spec`` that the rank
+    at ``coords`` of ``mesh`` holds (a view)."""
     if spec is None:
         return x
     if len(spec) > x.dim():
@@ -422,7 +543,7 @@ def _as_tuple(v):
 
 
 def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs,
-              timeout: float = DEFAULT_TIMEOUT) -> Callable:
+              timeout: float = DEFAULT_TIMEOUT, held: bool = False) -> Callable:
     """``body`` once per rank of ``mesh`` on that rank's slices.
 
     ``in_specs`` holds one :class:`P` per argument (``None`` passes the
@@ -435,7 +556,10 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs,
     On a thread mesh the ranks run as threads of this process and the call
     re-raises the first error any rank raised; on a process-group mesh
     this process runs its own rank, and every process gets the assembled
-    outputs."""
+    outputs.  ``held``: the arguments are what the caller holds, whole on
+    a thread mesh and on a process-group mesh already this process's
+    blocks, which pass to the body as they are; one body then serves both
+    transports."""
     in_specs = _as_tuple(in_specs)
     single = isinstance(out_specs, P)
     o_specs = _as_tuple(out_specs)
@@ -445,7 +569,7 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs,
             raise TypeError(f"shard_map: {len(args)} arguments for "
                             f"{len(in_specs)} in_specs")
         if mesh.device_mesh is not None:
-            outs = _run_process(body, mesh, args, in_specs)
+            outs = _run_process(body, mesh, args, in_specs, held)
         else:
             outs = _run_threads(body, mesh, args, in_specs, timeout)
         outs = [_as_tuple(o) for o in outs]
@@ -461,7 +585,7 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs,
 
 
 def _rank_args(mesh, args, in_specs, coords):
-    return [_local_slice(mesh, a, s, coords) for a, s in zip(args, in_specs)]
+    return [local_block(mesh, a, s, coords) for a, s in zip(args, in_specs)]
 
 
 def _run_threads(body, mesh: Mesh, args, in_specs, timeout: float) -> list:
@@ -513,16 +637,10 @@ def _run_threads(body, mesh: Mesh, args, in_specs, timeout: float) -> list:
     return outs
 
 
-def _run_process(body, mesh: Mesh, args, in_specs) -> list:
-    import torch.distributed as dist
-    rank = dist.get_rank()
-    coords = mesh.coords(rank)
-    comm = _Processes(mesh)
-    _local.rank = _Rank(mesh, rank, coords, comm)
-    try:
-        out = _as_tuple(body(*_rank_args(mesh, args, in_specs, coords)))
+def _run_process(body, mesh: Mesh, args, in_specs, held: bool) -> list:
+    with process_rank(mesh) as coords:
+        out = _as_tuple(body(*(args if held else _rank_args(
+            mesh, args, in_specs, coords))))
         # every rank's outputs, gathered over the whole world in rank order
         gathered = [_gather_host(t, None, mesh.size).unbind(0) for t in out]
-    finally:
-        _local.rank = None
     return [tuple(g[r] for g in gathered) for r in range(mesh.size)]

@@ -108,6 +108,11 @@ def _softmax_grads(xd: torch.Tensor, yd: torch.Tensor, w: torch.Tensor,
                   "b": resid.sum(dim=1)}, batch_dims=1)
 
 
+def flat_grad(params, xm: torch.Tensor, ym: torch.Tensor) -> torch.Tensor:
+    """One device's flattened gradient ``[b, w]`` on its local batch."""
+    return _softmax_grads(xm[None], ym[None], params["w"], params["b"])[0]
+
+
 def flat_grad_fn(params):
     """``(w, xd, yd) -> (..., M, d)``: the flat gradient of each device at
     its own iterate, the per-epoch hook

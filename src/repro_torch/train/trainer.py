@@ -1,4 +1,4 @@
-"""Distributed train step on a named mesh of rank threads.
+"""Distributed train step on a named mesh of rank threads or processes.
 
 The port of the reference's ``repro/train/trainer.py``.  The reference's
 step has three phases: per-device gradients in a ``shard_map`` manual over
@@ -43,9 +43,17 @@ data coordinate; ``ota_axes=('pod',)`` is the hierarchical "edge site"
 variant: intra-pod aggregation is the ideal mean (the pod's gradient over
 its whole batch), the MAC runs across pods.
 
-Only a mesh of rank threads runs the step: a process-group mesh
-(:func:`repro_torch.sharding.init_process_mesh`) raises
-``NotImplementedError`` (ROADMAP queue 1, item 6).
+On a process-group mesh (:func:`repro_torch.sharding.init_process_mesh`)
+each rank is a process on its own device
+(:func:`repro_torch.sharding.process_device`) and every tensor of the
+error state and the gradient stack is only that rank's block.  Phase 1's
+gradient is computed once per OTA device, by its rank at coordinate 0 of
+the other axes, which scatters each of the others its block (a copy
+through the host: two processes' products need not round alike); phase 2
+runs each rank's ``sharded_round`` in its own process; ĝ is gathered over
+the axes that are not OTA axes, and every process applies the same update
+to its whole params and optimizer state.  Every process's caller gets OTA
+rank 0's metrics.  The bits are the thread mesh's.
 """
 from __future__ import annotations
 
@@ -115,15 +123,20 @@ class TrainStep:
     batch_spec: Any
     device: Any = None
     donate: bool = True
-    #: phase 1: ``(params, batch) -> (gstack, metrics)``, each OTA
-    #: device's gradient in its row of the layout's stack
+    #: phase 1: ``(params, batch) -> (gstack, metrics, seconds)``, each
+    #: OTA device's gradient in its row of the layout's stack; ``seconds``
+    #: of the host-staged hand-off of its blocks (0 on a thread mesh)
     grads_fn: Callable = None
-    #: phase 2: ``(gstack, delta, step, key, out_delta) -> (ghat, metrics)``;
-    #: writes the new error state into ``out_delta`` and ĝ (a param tree of
-    #: views) over the stack
+    #: phase 2: ``(gstack, delta, step, key, out_delta) -> (ghat, metrics,
+    #: seconds)``; writes the new error state into ``out_delta`` and ĝ (a
+    #: param tree of views) over the stack; ``seconds`` of ĝ's host-staged
+    #: gather (0 on a thread mesh)
     aggregate_fn: Callable = None
     #: seconds of the last step's phases: ``grads``, ``aggregate``,
-    #: ``update`` (the host's clock, read once the device has drained)
+    #: ``update`` (the host's clock, read once the device has drained); on
+    #: a process-group mesh also the host-staged hand-offs, ``scatter``
+    #: (phase 1's gradient blocks) and ``gather`` (ĝ), each taken out of
+    #: its phase
     split: Dict[str, float] = dataclasses.field(default_factory=dict)
     _jit_cache: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
@@ -139,34 +152,43 @@ class TrainStep:
         dev = self.device
         step, key = int(step), key.to(dev)
         t0 = clock(dev)
-        gstack, metrics = self.grads_fn(params, batch)
+        gstack, metrics, scatter_s = self.grads_fn(params, batch)
         t1 = clock(dev)
         new_delta = (delta if self.donate
                      else tree_map(torch.empty_like, delta))
-        ghat, agg = self.aggregate_fn(gstack, delta, step, key, new_delta)
+        ghat, agg, gather_s = self.aggregate_fn(gstack, delta, step, key,
+                                                new_delta)
         metrics.update(agg)
         t2 = clock(dev)
         params, opt_state = make_optimizer(self.train).apply(params, ghat,
                                                              opt_state)
         del gstack, ghat
         t3 = clock(dev)
-        self.split = {"grads": t1 - t0, "aggregate": t2 - t1,
-                      "update": t3 - t2}
+        self.split = {"grads": t1 - t0 - scatter_s,
+                      "aggregate": t2 - t1 - gather_s, "update": t3 - t2}
+        if self.mesh.processes:
+            self.split.update(scatter=scatter_s, gather=gather_s)
         return params, opt_state, new_delta, metrics
 
     def init_state(self, key):
         """``(params, opt_state, delta)`` on the step's device: the params
         of ``init_params(arch, key)``, the optimizer's zero state and a
-        zero error accumulator in ``ota.state_dtype``."""
+        zero error accumulator in ``ota.state_dtype`` (on a process-group
+        mesh, this rank's block of it)."""
         params = model_lib.init_params(self.arch, key.to(self.device))
         opt_state = make_optimizer(self.train).init(params)
         dtype = getattr(torch, self.ota.state_dtype)
+
+        def zeros(shape, named):
+            if self.mesh.processes:
+                shape = sharding.block_shape(self.mesh, shape, named.spec)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
         if isinstance(self.delta_sharding, dict):            # sliced
-            delta = {k: torch.zeros(s, dtype=dtype, device=self.device)
+            delta = {k: zeros(s, self.delta_sharding[k])
                      for k, s in zip(("sh", "rep"), self.delta_shape)}
         else:
-            delta = torch.zeros(self.delta_shape, dtype=dtype,
-                                device=self.device)
+            delta = zeros(self.delta_shape, self.delta_sharding)
         return params, opt_state, delta
 
 
@@ -175,17 +197,16 @@ class TrainStep:
 # ---------------------------------------------------------------------------
 
 
-def _placement(mesh: Mesh, ota_axes: Sequence[str]):
-    """``(ota_axes, axis_sizes, m_manual, auto_axes)``."""
-    if mesh.device_mesh is not None:
-        raise NotImplementedError(
-            "make_train_step on a process-group mesh: the step runs on a "
-            "mesh of rank threads (ROADMAP queue 1, item 6)")
+def _placement(mesh: Mesh, ota_axes: Sequence[str], device):
+    """``(ota_axes, axis_sizes, m_manual, auto_axes, device)``: the step's
+    device, or on a process-group mesh this rank's."""
+    dev = (sharding.process_device(device) if mesh.processes
+           else resolve_device(device))
     ota_axes = tuple(ota_axes)
     axis_sizes = dict(zip(mesh.axis_names, mesh.shape))
     m_manual = math.prod(axis_sizes[a] for a in ota_axes)
     auto_axes = tuple(a for a in mesh.axis_names if a not in ota_axes)
-    return ota_axes, axis_sizes, m_manual, auto_axes
+    return ota_axes, axis_sizes, m_manual, auto_axes, dev
 
 
 def _groups(ota: OTAConfig, ota_axes, axis_sizes, m_manual):
@@ -231,54 +252,128 @@ def _writes(spec) -> bool:
                if ax not in named)
 
 
-def _keep_rank0(metrics: Dict[str, Any], out: Dict[str, Any]) -> tuple:
-    """Rank 0's metrics into ``out``, as a ``P()`` out-spec takes a value;
-    the body's (empty) outputs."""
-    if _writes(P()):
+def _keep_rank0(metrics: Dict[str, Any], out: Dict[str, Any], dev) -> tuple:
+    """Rank 0's metrics into ``out`` on every caller, as a ``P()`` out-spec
+    takes a value (each process of a process-group mesh gets them from
+    rank 0 through the host, on ``dev``); the body's (empty) outputs."""
+    if sharding._me().mesh.processes:
+        out.update(sharding.from_rank0(metrics, dev))
+    elif _writes(P()):
         out.update({k: torch.as_tensor(v).detach()
                     for k, v in metrics.items()})
     return ()
 
 
-def _grads_phase(arch, train_cfg, loss_chunk, ota_axes, dims, m_manual,
-                 write_grads):
-    """Phase 1 as a ``shard_map`` over a mesh of the OTA axes alone: each
-    OTA rank's loss and gradient on its slice of the batch, written by
-    ``write_grads(bufs, grads)`` into its row of the caller's buffers.
+def _strip(spec, axes) -> P:
+    """``spec`` with every entry that names one of ``axes`` unsplit: a
+    block's spec within the row of one OTA device."""
+    def named(entry):
+        return entry is not None and any(
+            ax in axes for ax in ((entry,) if isinstance(entry, str)
+                                  else entry))
+    return P(*(None if named(e) else e for e in spec))
 
-    Returns ``run(params, batch, bufs, buf_spec) -> metrics`` (OTA rank
-    0's ``loss``, ``aux``, ``ppl`` and the mean ``global_loss``)."""
-    ota_mesh = Mesh(dims, ota_axes)
+
+def _row_shape(mesh: Mesh, block, spec, ota_axes) -> Tuple[int, ...]:
+    """The shape of one OTA device's row of the tensor whose block on a
+    rank is ``block``, split by ``spec``."""
+    shape = list(block.shape)
+    for dim, entry in enumerate(_strip(spec, ota_axes)):
+        if entry is not None:
+            shape[dim] *= math.prod(
+                mesh.axis_size(ax) for ax in sharding._axes(entry))
+    return tuple(shape)
+
+
+def _grads_phase(arch, train_cfg, loss_chunk, mesh, ota_axes, dims,
+                 m_manual, write_grads, dev):
+    """Phase 1: each OTA rank's loss and gradient on its slice of the
+    batch, written by ``write_grads(rows, grads)`` into that OTA device's
+    row of the buffers.
+
+    Returns ``run(params, batch, bufs, buf_specs) -> (metrics, seconds)``
+    (OTA rank 0's ``loss``, ``aux``, ``ppl`` and the mean
+    ``global_loss``).  On a mesh of rank threads it is a ``shard_map`` over
+    a mesh of the OTA axes alone, ``bufs`` the whole stacks and
+    ``buf_specs`` their row specs, and ``seconds`` is 0.  On a
+    process-group mesh ``bufs`` are this rank's blocks and ``buf_specs``
+    their specs on the whole mesh: the rank at coordinate 0 of the other
+    axes computes the row and scatters each member of its group its
+    blocks, flattened into one message; ``seconds`` is that hand-off's (on
+    a receiving rank, its wait for the row as well)."""
     compute_dtype = getattr(torch, train_cfg.compute_dtype)
     batch_spec = P(_entry(ota_axes))
+    auto_axes = tuple(a for a in mesh.axis_names if a not in ota_axes)
 
-    def run(params, batch, bufs, buf_specs):
+    def loss_and_grads(params, local):
+        with torch.enable_grad():
+            p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+            total, metrics = model_lib.loss_fn(
+                p, arch, local, compute_dtype=compute_dtype,
+                remat=train_cfg.remat, loss_chunk=loss_chunk)
+            grads = torch.autograd.grad(total, tree_leaves(p))
+        return total.detach(), metrics, grads
+
+    def global_loss(metrics, loss):
+        """The mean of the local losses over the OTA axes (after the
+        gradient is written and dropped: a rank waits here)."""
+        for ax in ota_axes:
+            loss = psum(loss, ax)
+        metrics["global_loss"] = div_const(loss, m_manual)
+
+    def run_threads(params, batch, bufs, buf_specs):
         names = sorted(batch)
         out: Dict[str, Any] = {}
 
         def body(*args):
             local = dict(zip(names, args[len(bufs):]))
-            with torch.enable_grad():
-                p = tree_map(lambda a: a.detach().requires_grad_(True),
-                             params)
-                total, metrics = model_lib.loss_fn(
-                    p, arch, local, compute_dtype=compute_dtype,
-                    remat=train_cfg.remat, loss_chunk=loss_chunk)
-                grads = torch.autograd.grad(total, tree_leaves(p))
+            loss, metrics, grads = loss_and_grads(params, local)
             write_grads(args[:len(bufs)], grads)
-            del p, grads
-            loss_g = total.detach()
-            for ax in ota_axes:
-                loss_g = psum(loss_g, ax)
-            metrics["global_loss"] = div_const(loss_g, m_manual)
-            return _keep_rank0(metrics, out)
+            del grads
+            global_loss(metrics, loss)
+            return _keep_rank0(metrics, out, dev)
 
-        shard_map(body, ota_mesh,
+        shard_map(body, Mesh(dims, ota_axes),
                   in_specs=(*buf_specs, *([batch_spec] * len(names))),
                   out_specs=())(*bufs, *(batch[k] for k in names))
-        return out
+        return out, 0.0
 
-    return run
+    def run_processes(params, batch, bufs, buf_specs):
+        with sharding.process_rank(mesh) as coords:
+            members = mesh.members(mesh.rank(coords), auto_axes)
+            metrics = parts = None
+            if members[0] == mesh.rank(coords):
+                local = {k: sharding.local_block(mesh, v, batch_spec, coords)
+                         for k, v in batch.items()}
+                loss, metrics, grads = loss_and_grads(params, local)
+                rows = [torch.zeros(_row_shape(mesh, b, spec, ota_axes),
+                                    dtype=b.dtype, device=dev)
+                        for b, spec in zip(bufs, buf_specs)]
+                write_grads(rows, grads)
+                del grads
+                global_loss(metrics, loss)
+                parts = []
+                for r in members:
+                    blocks = [sharding.local_block(
+                        mesh, row, _strip(spec, ota_axes), mesh.coords(r))
+                        .reshape(-1) for row, spec in zip(rows, buf_specs)]
+                    parts.append(blocks[0] if len(blocks) == 1
+                                 else torch.cat(blocks))
+                del rows
+            t0 = clock(dev)
+            flat = (bufs[0].view(-1) if len(bufs) == 1 else torch.empty(
+                sum(b.numel() for b in bufs), dtype=bufs[0].dtype,
+                device=dev))
+            sharding.scatter(parts, auto_axes, flat)
+            del parts
+            if len(bufs) > 1:
+                for b, piece in zip(bufs, flat.split(
+                        [b.numel() for b in bufs])):
+                    b.view(-1).copy_(piece)
+            seconds = clock(dev) - t0
+            return sharding.from_rank0(metrics, dev), seconds
+
+    return run_processes if mesh.processes else run_threads
 
 
 def _device_batch(batch, dev):
@@ -303,9 +398,10 @@ def make_train_step(arch: ArchConfig, train_cfg: TrainConfig, ota: OTAConfig,
 
     ``donate``: the step may write the new error accumulator into the
     input's storage (the reference donates params, optimizer state and
-    delta); it never changes a result."""
-    dev = resolve_device(device)
-    ota_axes, axis_sizes, m_manual, auto_axes = _placement(mesh, ota_axes)
+    delta); it never changes a result.  On a process-group mesh the step
+    runs this process's rank, on ``device`` or the rank's card."""
+    ota_axes, axis_sizes, m_manual, auto_axes, dev = _placement(
+        mesh, ota_axes, device)
     model_size = axis_sizes.get("model", 1)
     n_shards = math.prod(axis_sizes[a] for a in auto_axes)
 
@@ -335,14 +431,22 @@ def make_train_step(arch: ArchConfig, train_cfg: TrainConfig, ota: OTAConfig,
         torch.cat([g.reshape(-1).float() for g in grads],
                   out=bufs[0].view(d_pad)[:d])
 
-    grads_phase = _grads_phase(arch, train_cfg, loss_chunk, ota_axes, dims,
-                               m_manual, write_flat)
+    grads_phase = _grads_phase(arch, train_cfg, loss_chunk, mesh, ota_axes,
+                               dims, m_manual, write_flat, dev)
 
     def grads_fn(params, batch):
-        gstack = torch.zeros(delta_shape, dtype=torch.float32, device=dev)
-        metrics = grads_phase(params, _device_batch(batch, dev), (gstack,),
-                              (row_spec,))
-        return gstack, metrics
+        if mesh.processes:                  # this rank's block
+            gstack = torch.zeros(
+                sharding.block_shape(mesh, delta_shape, delta_spec),
+                dtype=torch.float32, device=dev)
+            spec = delta_spec
+        else:
+            gstack = torch.zeros(delta_shape, dtype=torch.float32,
+                                 device=dev)
+            spec = row_spec
+        metrics, seconds = grads_phase(params, _device_batch(batch, dev),
+                                       (gstack,), (spec,))
+        return gstack, metrics, seconds
 
     def aggregate_fn(gstack, delta, step, key, out_delta):
         metrics: Dict[str, Any] = {}
@@ -352,14 +456,20 @@ def make_train_step(arch: ArchConfig, train_cfg: TrainConfig, ota: OTAConfig,
                 scheme, g.reshape(-1), dl.reshape(-1), step, key, agg_ctx)
             out.view(-1).copy_(nd)
             g.view(-1).copy_(ghat)        # ĝ over this rank's slice
-            return _keep_rank0(met, metrics)
+            return _keep_rank0(met, metrics, dev)
 
         shard_map(agg_body, mesh,
                   in_specs=(delta_spec, delta_spec, delta_spec),
-                  out_specs=())(gstack, delta, out_delta)
-        # the OTA device row 0's ĝ (every row holds the same)
-        ghat = gstack[(0,) * len(dims)]
-        return unravel_flat(ghat[:d]), metrics
+                  out_specs=(), held=True)(gstack, delta, out_delta)
+        if not mesh.processes:
+            # the OTA device row 0's ĝ (every row holds the same)
+            return unravel_flat(gstack[(0,) * len(dims)][:d]), metrics, 0.0
+        t0 = clock(dev)
+        with sharding.process_rank(mesh):
+            # ĝ over the whole d: the slices of this rank's OTA row
+            ghat = sharding.all_gather(gstack.view(-1), auto_axes,
+                                       tiled=True)
+        return unravel_flat(ghat[:d]), metrics, clock(dev) - t0
 
     return TrainStep(
         arch=arch, train=train_cfg, ota=ota, ota_axes=ota_axes, mesh=mesh,
@@ -399,9 +509,9 @@ def make_train_step_sliced(arch: ArchConfig, train_cfg: TrainConfig,
                            device=None) -> TrainStep:
     """The sliced-layout train step (``ota_axes`` cover every axis but
     ``'model'``), on ``device`` (the card unless the caller names
-    another)."""
-    dev = resolve_device(device)
-    ota_axes, axis_sizes, m_manual, auto_axes = _placement(mesh, ota_axes)
+    another; on a process-group mesh, the rank's card)."""
+    ota_axes, axis_sizes, m_manual, auto_axes, dev = _placement(
+        mesh, ota_axes, device)
     if auto_axes != ("model",):
         raise ValueError("sliced layout supports ota_axes covering all but "
                          "the model axis")
@@ -453,8 +563,8 @@ def make_train_step_sliced(arch: ArchConfig, train_cfg: TrainConfig,
         for buf, g in zip(bufs, grads):
             buf[0].copy_(g)
 
-    grads_phase = _grads_phase(arch, train_cfg, loss_chunk, ota_axes, dims,
-                               m_manual, write_leaves)
+    grads_phase = _grads_phase(arch, train_cfg, loss_chunk, mesh, ota_axes,
+                               dims, m_manual, write_leaves, dev)
 
     def _flatten_group(leaves, n_pad):
         flat = torch.zeros(n_pad, dtype=torch.float32, device=dev)
@@ -464,30 +574,58 @@ def make_train_step_sliced(arch: ArchConfig, train_cfg: TrainConfig,
         return flat
 
     def grads_fn(params, batch):
-        gstack = [torch.zeros((m_manual, *lf.shape), dtype=torch.float32,
-                              device=dev) for lf, _, _ in info]
-        metrics = grads_phase(params, _device_batch(batch, dev), gstack,
-                              row_specs)
-        return gstack, metrics
+        shapes = [(m_manual, *lf.shape) for lf, _, _ in info]
+        if mesh.processes:                  # this rank's blocks
+            shapes = [sharding.block_shape(mesh, shape, spec)
+                      for shape, spec in zip(shapes, stacked_specs)]
+        gstack = [torch.zeros(shape, dtype=torch.float32, device=dev)
+                  for shape in shapes]
+        metrics, seconds = grads_phase(
+            params, _device_batch(batch, dev), gstack,
+            stacked_specs if mesh.processes else row_specs)
+        return gstack, metrics, seconds
+
+    def round_leaves(gl, dl_sh, dl_rep, out_sh, out_rep, step, key):
+        """The two sub-frames' rounds on a rank's gradient pieces; the new
+        error state into ``out_sh`` and, where this rank writes it,
+        ``out_rep``.  ``(ĝ of the sharded pieces, of the replicated,
+        metrics)``."""
+        g_sh = _flatten_group(
+            [g[0] for g, (_, _, sh) in zip(gl, info) if sh], d_sh_pad)
+        g_rep = _flatten_group(
+            [g[0] for g, (_, _, sh) in zip(gl, info) if not sh], d_rep_pad)
+        ghat_sh, nd_sh, met = distributed.sharded_round(
+            scheme, g_sh, dl_sh.reshape(-1), step, key, ctx_sh)
+        ghat_rep, nd_rep, _ = distributed.sharded_round(
+            scheme, g_rep, dl_rep.reshape(-1), step, key, ctx_rep)
+        out_sh.view(-1).copy_(nd_sh)
+        if mesh.processes or _writes(delta_rep_spec):
+            out_rep.view(-1).copy_(nd_rep)
+        return ghat_sh, ghat_rep, met
+
+    def gathered_leaves(gstack):
+        """ĝ's leaves from every model rank's pieces of this process's OTA
+        row (a process-group mesh): a sharded leaf's pieces joined along
+        its ``'model'`` dimension, a replicated leaf model rank 0's."""
+        with sharding.process_rank(mesh):
+            pieces = sharding.all_gather(
+                torch.cat([g[0].reshape(-1) for g in gstack]), "model")
+        leaves, i = [], 0
+        for g, (_, spec, sh) in zip(gstack, info):
+            shape, n = g.shape[1:], g[0].numel()
+            views = [piece[i:i + n].view(shape) for piece in pieces]
+            leaves.append(torch.cat(views, dim=list(spec).index("model"))
+                          if sh else views[0])
+            i += n
+        return leaves
 
     def aggregate_fn(gstack, delta, step, key, out_delta):
         metrics: Dict[str, Any] = {}
 
         def agg_body(*args):
             gl = args[:n_leaves]
-            dl_sh, dl_rep, out_sh, out_rep = args[n_leaves:]
-            g_sh = _flatten_group(
-                [g[0] for g, (_, _, sh) in zip(gl, info) if sh], d_sh_pad)
-            g_rep = _flatten_group(
-                [g[0] for g, (_, _, sh) in zip(gl, info) if not sh],
-                d_rep_pad)
-            ghat_sh, nd_sh, met = distributed.sharded_round(
-                scheme, g_sh, dl_sh.reshape(-1), step, key, ctx_sh)
-            ghat_rep, nd_rep, _ = distributed.sharded_round(
-                scheme, g_rep, dl_rep.reshape(-1), step, key, ctx_rep)
-            out_sh.view(-1).copy_(nd_sh)
-            if _writes(delta_rep_spec):
-                out_rep.view(-1).copy_(nd_rep)
+            ghat_sh, ghat_rep, met = round_leaves(gl, *args[n_leaves:],
+                                                  step, key)
             # ĝ over the gradient tree's local pieces
             i_sh = i_rep = 0
             for g, (_, spec, sh) in zip(gl, info):
@@ -500,23 +638,31 @@ def make_train_step_sliced(arch: ArchConfig, train_cfg: TrainConfig,
                         g[0].copy_(ghat_rep[i_rep:i_rep + n].view(
                             g[0].shape))
                     i_rep += n
-            return _keep_rank0(met, metrics)
+            return _keep_rank0(met, metrics, dev)
 
         shard_map(
             agg_body, mesh,
             in_specs=(*stacked_specs, delta_sh_spec, delta_rep_spec,
                       delta_sh_spec, delta_rep_spec),
-            out_specs=())(*gstack, delta["sh"], delta["rep"],
-                          out_delta["sh"], out_delta["rep"])
-        # the OTA device row 0's ĝ leaves, in the params' tree
-        rows = iter(g[0] for g in gstack)
+            out_specs=(), held=True)(*gstack, delta["sh"], delta["rep"],
+                                     out_delta["sh"], out_delta["rep"])
+        seconds = 0.0
+        if mesh.processes:
+            t0 = clock(dev)
+            leaves = gathered_leaves(gstack)
+            seconds = clock(dev) - t0
+        else:
+            # the OTA device row 0's ĝ leaves
+            leaves = [g[0] for g in gstack]
+        # in the params' tree
+        rows = iter(leaves)
 
         def build(node):
             if isinstance(node, dict):
                 return {k: build(node[k]) for k in sorted(node)}
             return next(rows)
 
-        return build(aparams), metrics
+        return build(aparams), metrics, seconds
 
     return TrainStep(
         arch=arch, train=train_cfg, ota=ota, ota_axes=ota_axes, mesh=mesh,

@@ -203,3 +203,41 @@ def test_amp_decode_dispatch_matches_reference_routes():
         xj = np.asarray(jamp.amp_decode(jnp.asarray(y), pj, iters=9))
         xt = tamp.amp_decode(_t(y), pt, iters=9).numpy()
         np.testing.assert_allclose(xt, xj, **AMP_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the error feedback's two steps and the average-power check
+# ---------------------------------------------------------------------------
+
+
+def test_error_feedback_and_residual_bitwise():
+    rs = np.random.default_rng(11)
+    g, delta, g_sp = (rs.standard_normal((3, 4097)).astype(np.float32)
+                      * s for s in (1.0, 0.3, 2.0))
+    g_ec = jcomp.error_feedback(jnp.asarray(g), jnp.asarray(delta))
+    got = tcomp.error_feedback(_t(g), _t(delta))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(g_ec))
+    np.testing.assert_array_equal(
+        tcomp.residual(got, _t(g_sp)).numpy(),
+        np.asarray(jcomp.residual(g_ec, jnp.asarray(g_sp))))
+
+
+@pytest.mark.parametrize("schedule", ["constant", "lh_stair", "lh_steps",
+                                      "hl_steps"])
+def test_verify_average_power_on_both_sides_of_the_tolerance(schedule):
+    from repro.core import power as jpower
+    from repro_torch.core import power as tpower
+    ps = tpower.schedule_array(30, 200.0, schedule)
+    mean = float(ps.mean())
+    rs = np.random.default_rng(12)
+    noisy = ps * (1.0 + 1e-3 * rs.standard_normal(ps.shape))
+    cases = [(ps, 200.0, 1e-6), (noisy, 200.0, 1e-6), (ps, mean, 0.0),
+             (ps, mean * (1 - 1e-7), 1e-6), (ps, mean * (1 - 2e-6), 1e-6),
+             (ps, mean * 0.999, 1e-3), (ps, mean * 0.998, 1e-3)]
+    outcomes = []
+    for arr, p_avg, tol in cases:
+        want = jpower.verify_average_power(arr, p_avg, tol)
+        got = tpower.verify_average_power(arr, p_avg, tol)
+        assert got == want and isinstance(got, bool), (p_avg, tol)
+        outcomes.append(got)
+    assert True in outcomes and False in outcomes, outcomes

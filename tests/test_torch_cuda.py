@@ -190,6 +190,29 @@ def test_ota_project_t(dev, nb, c, sb, rademacher, m):
         assert torch.equal(r, ref.ota_project_t_ref(y, seed, c, rademacher))
 
 
+@pytest.mark.parametrize("m", [1, 3])
+def test_projections_past_the_grid_limit(dev, m):
+    """More blocks than the grid's y limit (65 535): each CTA loops over
+    blocks y, y + 65 535, ..., so every block is projected with its own
+    hash, against the plain versions, one launch a call."""
+    nb, c, sb = 70_001, 64, 16
+    gen = _gen(dev, nb + m)
+    seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
+    x = torch.randn(m, nb, c, generator=gen, device=dev)
+    before = ota_project.launches
+    y = ota_project.ota_project(x, seed, sb, True)
+    assert ota_project.launches == before + 1
+    np.testing.assert_allclose(
+        y.cpu().numpy(), ref.ota_project_ref(x, seed, sb, True).cpu().numpy(),
+        rtol=3e-5, atol=3e-5)
+    before = ota_project.launches_t
+    r = ota_project.ota_project_t(y, seed, c)
+    assert ota_project.launches_t == before + 1
+    np.testing.assert_allclose(
+        r.cpu().numpy(), ref.ota_project_t_ref(y, seed, c).cpu().numpy(),
+        rtol=3e-5, atol=3e-5)
+
+
 def test_ota_project_t_shapes_in_any_order(dev):
     """A launch of one shape leaves nothing that a later shape depends on
     (cluster sizes 8, 4, 1 and back)."""

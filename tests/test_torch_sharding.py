@@ -154,6 +154,46 @@ def _inputs(rows, d, seed=0):
             torch.from_numpy((0.1 * rs.randn(rows, d)).astype(np.float32)))
 
 
+def _scatter_body(v):
+    """Each group along ``'shard'`` scatters its first member's two
+    scaled copies of its block."""
+    parts = ([v * (i + 1) for i in range(2)]
+             if sh.axis_index("shard") == 0 else None)
+    return sh.scatter(parts, "shard", torch.empty_like(v))
+
+
+def test_scatter_hands_each_member_its_block(pg_world):
+    """On the process group (``pg_cases``) rank ``(d, s)`` gets ``s + 1``
+    times the block of rank ``(d, 0)``; a thread mesh, whose ranks share
+    their tensors, has no hand-off; only a group's first member passes
+    blocks."""
+    x = _pg_input()
+    want = torch.stack([x[0], 2 * x[0], x[2], 2 * x[2]])
+    for r, got in enumerate(pg_world()):
+        assert torch.equal(got["scatter"], want), r
+    mesh = Mesh((2, 2), ("dev", "shard"))
+    spec = P(("dev", "shard"))
+    with pytest.raises(RuntimeError, match="process-group mesh"):
+        shard_map(_scatter_body, mesh, (spec,), spec)(x)
+
+    def wrong(v):                     # the second member passes them
+        parts = [v, v] if sh.axis_index("shard") else None
+        return sh.scatter(parts, "shard", torch.empty_like(v))
+
+    with pytest.raises(RuntimeError, match="first member"):
+        shard_map(wrong, mesh, (spec,), spec)(x)
+
+
+def test_block_shape():
+    mesh = Mesh((4, 2), ("data", "model"))
+    assert sh.block_shape(mesh, (4, 1024), P("data", "model")) == (1, 512)
+    assert sh.block_shape(mesh, (4, 2, 64), P("data", "model", None)) == \
+        (1, 1, 64)
+    assert sh.block_shape(mesh, (8, 3), P(("data", "model"))) == (1, 3)
+    with pytest.raises(ValueError, match="does not split"):
+        sh.block_shape(mesh, (6, 4), P("data"))
+
+
 def test_two_runs_are_bitwise():
     mesh = Mesh((4, 2), ("dev", "shard"))
     ctx = MACContext(m=4, device_axes=("dev",), shard_axes=("shard",),
@@ -224,19 +264,27 @@ mesh = sh.init_process_mesh((2, 2), ("dev", "shard"), rank=rank,
                             world_size=4, init_method="file://" + store,
                             timeout=120)
 try:
-    torch.save(T.pg_cases(mesh), out)
+    from torch.distributed.device_mesh import init_device_mesh
+    names = ("dev", "shard", "one")
+    out3 = sh.Mesh((2, 2, 1), names, device_mesh=init_device_mesh(
+        "cpu", (2, 2, 1), mesh_dim_names=names))
+    torch.save({**T.pg_cases(mesh), **T.pg_one_rank_axis(out3)}, out)
 finally:
     sh.close_process_mesh()
 """
 
 
+def _pg_input():
+    return torch.from_numpy(np.random.RandomState(4).randn(4, 1000)
+                            .astype(np.float32))
+
+
 def pg_cases(mesh):
     """The same bodies on either transport: the collectives, sharded_round
     (with shard_decode and a bfloat16 body) and round_sharded over both
-    axes as devices."""
+    axes as devices; on a process group also ``scatter``."""
     g, dl = _inputs(2, 512, seed=3)
-    x = torch.from_numpy(np.random.RandomState(4).randn(4, 1000)
-                         .astype(np.float32))
+    x = _pg_input()
     out = {"coll": shard_map(
         lambda v: (sh.psum(v, ("dev", "shard")),
                    sh.psum(v.bfloat16(), "dev").float(),
@@ -261,32 +309,56 @@ def pg_cases(mesh):
 
     spec = P(("dev", "shard"))
     out["round"] = shard_map(body, mesh, (spec, spec), (spec, spec))(g4, dl4)
+    if mesh.processes:
+        out["scatter"] = shard_map(_scatter_body, mesh, (spec,), spec)(x)
     return out
 
 
-def test_process_group_gives_the_thread_mesh_bits(tmp_path):
+def pg_one_rank_axis(mesh):
+    """Collectives over an axis of one rank (``'one'`` of a 2 x 2 x 1
+    mesh), alone and after ``'shard'``."""
+    spec = P(("dev", "shard"))
+    return {"one": shard_map(
+        lambda v: (sh.psum(v, "one") * 1, sh.psum(v, ("shard", "one")),
+                   sh.all_gather(v, ("one", "shard"), tiled=True)[None]),
+        mesh, (spec,), (spec, spec, spec))(_pg_input())}
+
+
+@pytest.fixture(scope="module")
+def pg_world(tmp_path_factory):
+    """``pg_cases`` on 4 gloo processes, started once for the module;
+    calling the fixture's value waits for them and returns each rank's
+    results."""
+    tmp = tmp_path_factory.mktemp("pg")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [SRC, os.path.dirname(os.path.abspath(__file__))])
-    store = str(tmp_path / "store")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), store,
-         str(tmp_path / f"rank{r}.pt")], env=env, stdout=subprocess.PIPE,
+        [sys.executable, "-c", _WORKER, str(r), str(tmp / "store"),
+         str(tmp / f"rank{r}.pt")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(4)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0] * 4, "\n".join(logs)
-    want = pg_cases(Mesh((2, 2), ("dev", "shard")))
-    for r in range(4):
-        got = torch.load(tmp_path / f"rank{r}.pt")
-        assert got.keys() == want.keys()
+    results = []
+
+    def wait():
+        if not results:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+            assert [p.returncode for p in procs] == [0] * 4, "\n".join(logs)
+            results.extend(torch.load(tmp / f"rank{r}.pt")
+                           for r in range(4))
+        return results
+
+    yield wait
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def test_process_group_gives_the_thread_mesh_bits(pg_world):
+    want = {**pg_cases(Mesh((2, 2), ("dev", "shard"))),
+            **pg_one_rank_axis(Mesh((2, 2, 1), ("dev", "shard", "one")))}
+    for r, got in enumerate(pg_world()):
+        assert got.keys() == want.keys() | {"scatter"}
         for k in want:
             for a, b in zip(got[k], want[k]):
                 assert a.dtype == b.dtype and torch.equal(a, b), (r, k)

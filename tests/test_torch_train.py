@@ -177,6 +177,24 @@ def test_device_grads_match_reference(data):
                                atol=1e-7)
 
 
+def test_flat_grad_matches_reference(data):
+    """One device's flattened gradient, at
+    ``test_device_grads_match_reference``'s bar."""
+    xd, yd, _, _ = data
+    rs = np.random.default_rng(6)
+    p = {"w": 0.1 * rs.standard_normal((64, 10)).astype(np.float32),
+         "b": 0.1 * rs.standard_normal(10).astype(np.float32)}
+    pt = convert.to_torch(p, "cpu")
+    for m in range(xd.shape[0]):
+        gj = jpr.flat_grad(jax.tree.map(jnp.asarray, p), jnp.asarray(xd[m]),
+                           jnp.asarray(yd[m]))
+        gt = tpr.flat_grad(pt, torch.from_numpy(xd[m]),
+                           torch.from_numpy(yd[m]).long())
+        assert gt.shape == gj.shape == (650,)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5,
+                                   atol=1e-7)
+
+
 def test_ideal_and_dense_runs_match_reference(data):
     xd, yd, xte, yte = data
     for kw in (dict(scheme="ideal", total_steps=3),

@@ -2,13 +2,20 @@
 ``distributed_ota`` example on the CPU, at the reference's settings.
 
 Each run prints finite losses; ``--ckpt`` writes the final params and
-optimizer state, which ``load_checkpoint`` reads back bitwise; the
-example's loss falls over its first steps (its batches cycle over four).
+optimizer state, which ``load_checkpoint`` reads back bitwise; four
+processes under torchrun's variables (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) write, from rank 0, the
+checkpoint of the run on a mesh of rank threads, bitwise; the example's
+loss falls over its first steps (its batches cycle over four).
 """
 import contextlib
 import io
 import math
+import os
 import re
+import socket
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -19,6 +26,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.train.checkpoint import load_checkpoint
 
 LOSS = re.compile(r"step\s+(\d+)\s+loss ([-\d.naif]+)")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -63,6 +71,64 @@ def test_train_cli_4x2_writes_a_checkpoint(tmp_path, monkeypatch):
     assert len(want) == len(got)
     for w, g in zip(want, got):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_train_cli_under_torchrun_writes_the_thread_meshs_checkpoint(
+        tmp_path):
+    argv = ["--reduced", "--mesh", "2x2", "--steps", "2", "--device", "cpu",
+            "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv, "--ckpt",
+         str(tmp_path / "pg.npz")],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    # the thread mesh on one CPU thread, as each rank runs: at the
+    # launcher's 16 x 64 tokens the CPU's products round by their thread
+    # count
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc, out = _main(argv + ["--ckpt", str(tmp_path / "threads.npz")])
+        torch.set_num_threads(n)
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        torch.set_num_threads(n)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert rc == 0 and [p.returncode for p in procs] == [0] * 4, logs
+    # rank 0 alone prints, as the thread mesh's run does
+    assert _losses(logs[0]) == _losses(out) and len(_losses(out)) == 2
+    assert not any(LOSS.search(log) for log in logs[1:]), logs[1:]
+    got, step = load_checkpoint(str(tmp_path / "pg.npz"), device="cpu")
+    want, want_step = load_checkpoint(str(tmp_path / "threads.npz"),
+                                      device="cpu")
+    assert step == want_step == 2
+    got, want = tree_leaves(got), tree_leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_train_cli_under_torchrun_needs_a_card_or_device_cpu(monkeypatch):
+    """A rank with no card and no ``--device cpu`` raises before it joins
+    the group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k, v in dict(WORLD_SIZE="4", RANK="0", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--reduced", "--mesh", "2x2", "--steps", "1"])
 
 
 def test_train_cli_site_ota_on_2x2x2():

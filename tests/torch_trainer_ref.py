@@ -5,10 +5,11 @@ Run as a script with the output path; it runs in a process of its own,
 since the device count must be set before jax starts (the test imports it
 for its case tables and :func:`run_reference`):
 
-    python tests/torch_trainer_ref.py OUT.npz phases|steps
+    python tests/torch_trainer_ref.py OUT.npz phases|steps [CASE,...]
 
 ``phases``: the step's layouts, phase 1 and phase 2 apart (phase 2 from
-phase 1's gradient stack) and the serve step; ``steps``: whole steps.
+phase 1's gradient stack) and the serve step; ``steps``: whole steps, of
+every case of ``STEP_CASES`` or of the cases named.
 
 The meshes have *Auto* axes: the reference's ``make_local_mesh`` gives
 Explicit axes on jax 0.9.0, where its step fails (ROADMAP, North star).
@@ -323,12 +324,13 @@ def run_phases(out):
             out[f"phase2/{name}/{k}"] = v
 
 
-def run_steps(out):
+def run_steps(out, cases=tuple(STEP_CASES)):
     m = mesh(*MESH_4X2)
     tokens = batch_tokens()
     out["tokens"] = tokens
     batch = {"tokens": jnp.asarray(tokens)}
-    for name, (over, sliced) in STEP_CASES.items():
+    for name in cases:
+        over, sliced = STEP_CASES[name]
         ts = make_step(ota_cfg(**over), m, ("data",), sliced)
         params, opt_state, delta = ts.init_state(jax.random.PRNGKey(0))
         fn = ts.jitted(batch)
@@ -373,14 +375,14 @@ def run_serve(out):
         out[f"serve/logits/{i + 1}"] = np.asarray(logits)
 
 
-def main(path, part):
+def main(path, part, cases=None):
     out = {}
     if part == "phases":
         run_layouts(out)
         run_phases(out)
         run_serve(out)
     else:
-        run_steps(out)
+        run_steps(out, *([cases.split(",")] if cases else []))
     np.savez(path, **out)
 
 
@@ -388,15 +390,16 @@ class Reference(Mapping):
     """This script for ``part`` in a subprocess of its own, started at once;
     the npz loads on first access, so a test module computes the port's
     side while the reference runs (a module-scoped fixture; ``close`` at
-    its teardown)."""
+    its teardown); ``cases``: the ``steps`` part's cases, all if None."""
 
-    def __init__(self, path, part, timeout=600):
+    def __init__(self, path, part, timeout=600, cases=None):
         here = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.join(here, "..", "src")
         self.path, self.timeout, self._data = path, timeout, None
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(path), part],
+            [sys.executable, os.path.abspath(__file__), str(path), part,
+             *([",".join(cases)] if cases else [])],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env)
 
@@ -424,4 +427,4 @@ class Reference(Mapping):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:4])
