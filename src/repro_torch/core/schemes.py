@@ -50,7 +50,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
-from repro_torch import rng, sharding
+from repro_torch import rng, sharding, tracing
 from repro_torch.configs.base import OTAConfig
 from repro_torch.core import (
     channel, compression, distributed, fading, geometry, power,
@@ -467,28 +467,37 @@ class ADSGDScheme(Scheme):
         p_t = p_t.expand(g.shape[:-1])
         projector = self._projector_for(ctx)
         if isinstance(projector, DenseProjector):
-            g_ec = g + st
-            g_sp = compression.top_k_sparsify(g_ec, self.k)
-            new_state = g_ec - g_sp
-            g_tilde = per_point(projector.project, g_sp, rank=2)
+            with tracing.span("encode.sparsify"):
+                g_ec = g + st
+                g_sp = compression.top_k_sparsify(g_ec, self.k)
+                new_state = g_ec - g_sp
+            with tracing.span("encode.project"):
+                g_tilde = per_point(projector.project, g_sp, rank=2)
         else:
             # rows are independent in the threshold (a sort), the sparsifier
             # and the projection: all points' devices in one launch each
-            tau = compression.sampled_topk_threshold(g + st, self.k, keys)
-            g_sp, new_state = ops.ef_sparsify(
-                g, st, tau, use_kernel=self._use_kernel(ctx))
-            g_tilde = projector.project(g_sp)
+            with tracing.span("encode.threshold"):
+                tau = compression.sampled_topk_threshold(g + st, self.k,
+                                                         keys)
+            with tracing.span("encode.sparsify"):
+                g_sp, new_state = ops.ef_sparsify(
+                    g, st, tau, use_kernel=self._use_kernel(ctx))
+            with tracing.span("encode.project"):
+                g_tilde = projector.project(g_sp)
         use_mr = step < cfg.mean_removal_steps
-        frame, alpha = channel.make_frame(g_tilde, p_t, use_mr)
+        with tracing.span("encode.frame"):
+            frame, alpha = channel.make_frame(g_tilde, p_t, use_mr)
         metrics = {"alpha": alpha, "p_t": p_t,
                    "frame_power": channel.frame_power(frame)}
         return frame, new_state.to(state.dtype), metrics
 
     def decode(self, y, step, ctx=None):
         use_mr = step < self.cfg.mean_removal_steps
-        y_body = channel.ps_normalize(y, use_mr)
-        return amp_decode(y_body, self._projector_for(ctx),
-                          self.cfg.amp_iters)
+        with tracing.span("decode.normalize"):
+            y_body = channel.ps_normalize(y, use_mr)
+        with tracing.span("decode.amp"):
+            return amp_decode(y_body, self._projector_for(ctx),
+                              self.cfg.amp_iters)
 
     def silent_state(self, g, state, new_state):
         # a device that could not transmit banks its whole update
@@ -812,19 +821,23 @@ def encode_round(scheme: Scheme, grads: torch.Tensor, deltas: torch.Tensor,
     the AWGN.  Returns ``(y, new_deltas, metrics, draw)``.
     """
     m = grads.shape[-2]
-    dev_keys = rng.split(rng.fold_in(key, 1), m)
-    draw = scheme.channel_draw(rng.fold_in(key, 2), step, m)
-    frames, new_deltas, metrics = scheme.encode(
-        grads, deltas, step, dev_keys, ctx.with_p_factor(draw.p_factor))
-    if scheme.analog:
-        frames = apply_channel_gain(frames, draw)
-        new_deltas = torch.where(draw.active[..., None], new_deltas,
-                                 scheme.silent_state(grads, deltas,
-                                                     new_deltas))
-        y = channel.mac_sum(frames, rng.fold_in(key, 0),
-                            round_sigma2(scheme, draw))
-    else:
-        y = frames.sum(dim=-2)
+    # the MAC's channel draw comes first: the encode needs its power factor
+    with tracing.span("stream.mac"):
+        draw = scheme.channel_draw(rng.fold_in(key, 2), step, m)
+    with tracing.span("stream.encode"):
+        dev_keys = rng.split(rng.fold_in(key, 1), m)
+        frames, new_deltas, metrics = scheme.encode(
+            grads, deltas, step, dev_keys, ctx.with_p_factor(draw.p_factor))
+    with tracing.span("stream.mac"):
+        if scheme.analog:
+            frames = apply_channel_gain(frames, draw)
+            new_deltas = torch.where(draw.active[..., None], new_deltas,
+                                     scheme.silent_state(grads, deltas,
+                                                         new_deltas))
+            y = channel.mac_sum(frames, rng.fold_in(key, 0),
+                                round_sigma2(scheme, draw))
+        else:
+            y = frames.sum(dim=-2)
     return y, new_deltas, metrics, draw
 
 

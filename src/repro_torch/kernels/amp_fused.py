@@ -37,10 +37,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, cost, layout, ref
-
-#: launches of the CUDA kernel since the last reset
-launches = 0
 
 
 def amp_decode_fused(yb: torch.Tensor, seed, c: int, *, iters: int = 20,
@@ -83,7 +81,6 @@ def _shape(yb: torch.Tensor):
 
 def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
             debias: bool, rademacher: bool, id_offset) -> torch.Tensor:
-    global launches
     build.require_cuda_f32("amp_decode_fused", yb=yb)
     points, n_blocks, s_block = _shape(yb)
     lib = build.library()
@@ -105,8 +102,7 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
         int(debias), int(rademacher), ref.entry_scale(s_block),
         build.current_stream(yb.device))
     build.check(rc, "amp_decode_fused")
-    with build.LAUNCH_LOCK:
-        launches += 1
+    tracing.count("launches.amp_fused")
     return xb
 
 

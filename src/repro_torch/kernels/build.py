@@ -117,11 +117,6 @@ def build(verbose: bool = False) -> Path:
 _library = None
 _library_lock = threading.Lock()
 
-#: held while a wrapper adds one to its launch count: rank threads of a
-#: mesh launch the kernels concurrently, and ``launches += 1`` is a read,
-#: an add and a write that two threads can interleave
-LAUNCH_LOCK = threading.Lock()
-
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.

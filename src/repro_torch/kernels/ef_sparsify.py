@@ -21,10 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, cost, ref
-
-#: launches of the CUDA kernel since the last reset
-launches = 0
 
 
 def ef_sparsify(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
@@ -61,7 +59,6 @@ def _trace(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
 
 
 def _launch(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
-    global launches
     build.require_cuda_f32("ef_sparsify", g=g, delta=delta, tau=tau)
     _check_shapes(g, delta, tau)
     m, n = _rows(g)
@@ -71,6 +68,5 @@ def _launch(g: torch.Tensor, delta: torch.Tensor, tau: torch.Tensor):
         g.data_ptr(), delta.data_ptr(), tau.data_ptr(), g_sp.data_ptr(),
         new_delta.data_ptr(), m, n, build.current_stream(g.device))
     build.check(rc, "ef_sparsify")
-    with build.LAUNCH_LOCK:
-        launches += 1
+    tracing.count("launches.ef_sparsify")
     return g_sp, new_delta

@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import amp_fused, ef_sparsify as _ef, ota_project as _otp
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import ref
 
 
 def ota_project(x: torch.Tensor, *, seed, s_block: int,
@@ -58,17 +59,16 @@ def ef_sparsify(g: torch.Tensor, delta: torch.Tensor, tau, *,
     return ref.ef_sparsify_ref(g, delta, tau)
 
 
+#: the CUDA kernels whose launches are counted, as ``launches.<kernel>``
+#: counters of :mod:`repro_torch.tracing`
+KERNELS = ("ef_sparsify", "ota_project", "ota_project_t", "amp_fused")
+
+
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last :func:`reset_launches`."""
-    with build.LAUNCH_LOCK:
-        return {"ef_sparsify": _ef.launches, "ota_project": _otp.launches,
-                "ota_project_t": _otp.launches_t,
-                "amp_fused": amp_fused.launches}
+    counts = tracing.totals()
+    return {k: counts.get("launches." + k, 0) for k in KERNELS}
 
 
 def reset_launches() -> None:
-    with build.LAUNCH_LOCK:
-        _ef.launches = 0
-        _otp.launches = 0
-        _otp.launches_t = 0
-        amp_fused.launches = 0
+    tracing.reset(*("launches." + k for k in KERNELS))

@@ -42,12 +42,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, cost, layout, ref
-
-#: launches of the forward CUDA kernel since the last reset
-launches = 0
-#: launches of the adjoint CUDA kernel since the last reset
-launches_t = 0
 
 
 def ota_project(x: torch.Tensor, seed, s_block: int,
@@ -81,7 +77,6 @@ def _fwd_shape(x: torch.Tensor):
 
 def _launch(x: torch.Tensor, seed, s_block: int,
             rademacher: bool) -> torch.Tensor:
-    global launches
     build.require_cuda_f32("ota_project", x=x)
     m, n_blocks, c = _fwd_shape(x)
     y = torch.empty(*x.shape[:-1], s_block, dtype=torch.float32,
@@ -93,8 +88,7 @@ def _launch(x: torch.Tensor, seed, s_block: int,
         int(rademacher), ref.entry_scale(s_block),
         build.current_stream(x.device))
     build.check(rc, "ota_project")
-    with build.LAUNCH_LOCK:
-        launches += 1
+    tracing.count("launches.ota_project")
     return y
 
 
@@ -128,7 +122,6 @@ def _adj_shape(y: torch.Tensor, c: int):
 
 
 def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
-    global launches_t
     build.require_cuda_f32("ota_project_t", y=y)
     m, n_blocks, s_block = _adj_shape(y, c)
     r = torch.empty(*y.shape[:-1], c, dtype=torch.float32, device=y.device)
@@ -139,6 +132,5 @@ def _launch_t(y: torch.Tensor, seed, c: int, rademacher: bool) -> torch.Tensor:
         int(rademacher), ref.entry_scale(s_block),
         build.current_stream(y.device))
     build.check(rc, "ota_project_t")
-    with build.LAUNCH_LOCK:
-        launches_t += 1
+    tracing.count("launches.ota_project_t")
     return r

@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 from repro_torch.configs.base import ArchConfig, OTAConfig, TrainConfig
 from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core.schemes import (
@@ -120,6 +120,8 @@ def stream_round(scheme: Scheme, gchunks: torch.Tensor,
     out = _Stream(scheme, gchunks, deltas)
 
     def encode(i):
+        tracing.at_chunk(i)
+        tracing.count("chunks")
         y, nd, met, draw = encode_round(scheme, _chunk(gchunks, i),
                                         deltas[i], t, _chunk_key(key, i),
                                         ctx)
@@ -127,11 +129,17 @@ def stream_round(scheme: Scheme, gchunks: torch.Tensor,
         out.mets.append(_chunk_metrics(met, draw))
         return y
 
+    def decode(i, y):
+        tracing.at_chunk(i)
+        with tracing.span("stream.decode"):
+            out.ghats[i] = scheme.decode(y, t, ctx)
+
     y_prev = encode(0)
     for i in range(1, gchunks.shape[0]):
-        out.ghats[i - 1] = scheme.decode(y_prev, t, ctx)   # PS: chunk i-1
-        y_prev = encode(i)                                  # devices: chunk i
-    out.ghats[-1] = scheme.decode(y_prev, t, ctx)
+        decode(i - 1, y_prev)     # PS: chunk i-1
+        y_prev = encode(i)        # devices: chunk i
+    decode(gchunks.shape[0] - 1, y_prev)
+    tracing.at_chunk(None)
     return out.done()
 
 
@@ -158,10 +166,13 @@ def stream_round_masked(scheme: Scheme, gchunks: torch.Tensor,
     At the all-ones mask it is bitwise :func:`stream_round`."""
     out = _Stream(scheme, gchunks, deltas)
     for i in range(gchunks.shape[0]):
+        tracing.at_chunk(i)
+        tracing.count("chunks")
         ghat, nd, met = round_masked(scheme, _chunk(gchunks, i), deltas[i],
                                      t, _chunk_key(key, i), mask, ctx)
         out.ghats[i], out.deltas[i] = ghat, nd
         out.mets.append(met)
+    tracing.at_chunk(None)
     return out.done()
 
 
@@ -242,40 +253,49 @@ class CompiledFedLLM:
         device's activations live at a time, and each gradient is written
         into its row of the preallocated ``(m, d_pad)`` block.
         """
-        gflat = torch.zeros((self.m, self.d_pad), dtype=torch.float32,
-                            device=self.device)
-        dev_keys = rng.split(rng.fold_in(key, SALT_DATA), self.m)
-        losses = []
-        for i in range(self.m):
-            batch = self._device_batch(dev_keys[i])
-            p = tree_map(lambda a: a.detach().requires_grad_(True), params)
-            loss, _ = model_lib.loss_fn(p, self.arch, batch,
-                                        compute_dtype=self.compute_dtype,
-                                        remat=self.train_cfg.remat)
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-            torch.cat([g.reshape(-1).float() for g in grads],
-                      out=gflat[i, :self.d])
-            losses.append(loss.detach())
-        return gflat, torch.stack(losses).mean()
+        with tracing.span("grads"):
+            gflat = torch.zeros((self.m, self.d_pad), dtype=torch.float32,
+                                device=self.device)
+            dev_keys = rng.split(rng.fold_in(key, SALT_DATA), self.m)
+            losses = []
+            for i in range(self.m):
+                with tracing.span("grads.batch"):
+                    batch = self._device_batch(dev_keys[i])
+                p = tree_map(lambda a: a.detach().requires_grad_(True),
+                             params)
+                with tracing.span("grads.forward"):
+                    loss, _ = model_lib.loss_fn(
+                        p, self.arch, batch, compute_dtype=self.compute_dtype,
+                        remat=self.train_cfg.remat)
+                with tracing.span("grads.backward"):
+                    grads = torch.autograd.grad(loss, tree_leaves(p))
+                with tracing.span("grads.flatten"):
+                    torch.cat([g.reshape(-1).float() for g in grads],
+                              out=gflat[i, :self.d])
+                losses.append(loss.detach())
+            return gflat, torch.stack(losses).mean()
 
     def _round(self, sch: Scheme, carry, t: int, key, mask):
-        params, opt_state, deltas = carry
-        gflat, loss = self._grads(params, key)
-        gchunks = gflat.view(self.m, self.n_chunks,
-                             self.chunk_len).transpose(0, 1)
-        if mask is None:
-            ghats, new_deltas, mets = stream_round(sch, gchunks, deltas, t,
-                                                   key, self.ctx)
-        else:
-            ghats, new_deltas, mets = stream_round_masked(
-                sch, gchunks, deltas, t, key, mask, self.ctx)
-        del gflat, gchunks
-        ghat = ghats.reshape(self.d_pad)[: self.d]
-        params, opt_state = self.opt.apply(params, self.unravel(ghat),
-                                           opt_state)
-        out = {"loss": loss,
-               "metrics": {k: torch.mean(v) for k, v in mets.items()}}
-        return (params, opt_state, new_deltas), out
+        with tracing.span("round", t=t):
+            params, opt_state, deltas = carry
+            gflat, loss = self._grads(params, key)
+            gchunks = gflat.view(self.m, self.n_chunks,
+                                 self.chunk_len).transpose(0, 1)
+            with tracing.span("stream"):
+                if mask is None:
+                    ghats, new_deltas, mets = stream_round(
+                        sch, gchunks, deltas, t, key, self.ctx)
+                else:
+                    ghats, new_deltas, mets = stream_round_masked(
+                        sch, gchunks, deltas, t, key, mask, self.ctx)
+            del gflat, gchunks
+            ghat = ghats.reshape(self.d_pad)[: self.d]
+            with tracing.span("adam"):
+                params, opt_state = self.opt.apply(
+                    params, self.unravel(ghat), opt_state)
+            out = {"loss": loss,
+                   "metrics": {k: torch.mean(v) for k, v in mets.items()}}
+            return (params, opt_state, new_deltas), out
 
     # ------------------------------------------------------------ entry
     def run_segment(self, overrides: Dict[str, Any], keys: torch.Tensor,

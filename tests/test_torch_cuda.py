@@ -29,6 +29,10 @@ def dev():
     return resolve_device(None)
 
 
+def _launches(kernel):
+    return ops.launch_counts()[kernel]
+
+
 def _gen(dev, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -42,10 +46,10 @@ def test_ef_sparsify_bitwise(dev, m, n):
     g = torch.randn(m, n, generator=gen, device=dev)
     d = torch.randn(m, n, generator=gen, device=dev)
     tau = torch.rand(m, generator=gen, device=dev)
-    before = ef_sparsify.launches
+    before = _launches("ef_sparsify")
     sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
     sr, dr = ref.ef_sparsify_ref(g, d, tau)
-    assert ef_sparsify.launches == before + 1
+    assert _launches("ef_sparsify") == before + 1
     assert torch.equal(sp, sr) and torch.equal(nd, dr)
 
 
@@ -77,9 +81,9 @@ P_SHAPES = SHAPES + [(2, 4096, 1024)]
 def test_ota_project(dev, nb, c, sb, rademacher, m):
     x = torch.randn(m, nb, c, generator=_gen(dev, nb * c + m), device=dev)
     seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
-    before = ota_project.launches
+    before = _launches("ota_project")
     y = ota_project.ota_project(x, seed, sb, rademacher)
-    assert ota_project.launches == before + 1
+    assert _launches("ota_project") == before + 1
     want = ref.ota_project_ref(x, seed, sb, rademacher)
     np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
                                rtol=3e-5, atol=3e-5)
@@ -130,10 +134,10 @@ def test_amp_fused_clusters(dev, nb, sb, c, iters, rademacher):
     """The bar against the plain decode, two runs bitwise, and an
     ``id_offset`` sub-range bitwise the full decode's rows."""
     yb = _noisy_block_sparse(nb, c, sb, rademacher, _gen(dev, nb + c), dev)
-    before = amp_fused.launches
+    before = _launches("amp_fused")
     out = amp_fused.amp_decode_fused(yb, 9, c, iters=iters,
                                      rademacher=rademacher)
-    assert amp_fused.launches == before + 1
+    assert _launches("amp_fused") == before + 1
     want = amp_blocked_core(yb, 9, c, iters=iters, rademacher=rademacher)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
@@ -173,10 +177,10 @@ T_SHAPES = SHAPES + [(2, 4096, 1024), (3, 1000, 100), (3, 1000, 777),
 def test_ota_project_t(dev, nb, c, sb, rademacher, m):
     y = torch.randn(m, nb, sb, generator=_gen(dev, nb * sb + m), device=dev)
     seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
-    before = ota_project.launches_t
+    before = _launches("ota_project_t")
     r = ops.ota_project_t(y, seed=seed, c=c, rademacher=rademacher,
                           use_kernel=True)
-    assert ota_project.launches_t == before + 1
+    assert _launches("ota_project_t") == before + 1
     assert r.shape == (m, nb, c)
     np.testing.assert_allclose(
         r.cpu().numpy(), ref.ota_project_t_ref(y, seed, c, rademacher).cpu().numpy(),
@@ -199,15 +203,15 @@ def test_projections_past_the_grid_limit(dev, m):
     gen = _gen(dev, nb + m)
     seed = torch.tensor(0xDEADBEEF, dtype=torch.int64, device=dev)
     x = torch.randn(m, nb, c, generator=gen, device=dev)
-    before = ota_project.launches
+    before = _launches("ota_project")
     y = ota_project.ota_project(x, seed, sb, True)
-    assert ota_project.launches == before + 1
+    assert _launches("ota_project") == before + 1
     np.testing.assert_allclose(
         y.cpu().numpy(), ref.ota_project_ref(x, seed, sb, True).cpu().numpy(),
         rtol=3e-5, atol=3e-5)
-    before = ota_project.launches_t
+    before = _launches("ota_project_t")
     r = ota_project.ota_project_t(y, seed, c)
-    assert ota_project.launches_t == before + 1
+    assert _launches("ota_project_t") == before + 1
     np.testing.assert_allclose(
         r.cpu().numpy(), ref.ota_project_t_ref(y, seed, c).cpu().numpy(),
         rtol=3e-5, atol=3e-5)
@@ -374,10 +378,10 @@ def test_amp_fused_points(dev, points, rademacher):
     gen = _gen(dev, 50 + points)
     yb = torch.stack([_noisy_block_sparse(2, 4096, 1024, rademacher, gen,
                                           dev) for _ in range(points)])
-    before = amp_fused.launches
+    before = _launches("amp_fused")
     out = amp_fused.amp_decode_fused(yb, 9, 4096, iters=20,
                                      rademacher=rademacher)
-    assert amp_fused.launches == before + 1
+    assert _launches("amp_fused") == before + 1
     assert out.shape == (points, 2, 4096)
     for g in range(points):
         one = amp_fused.amp_decode_fused(yb[g], 9, 4096, iters=20,
@@ -1262,9 +1266,9 @@ def test_ota_project_one_shard_block_bitwise(dev, shard):
     seed = int(ref.splitmix32(ref.as_u32(0) ^ ref.as_u32(shard)))
     x = torch.randn(1, 4096, generator=_gen(dev, 40 + shard), device=dev)
     x = torch.where(x.abs() > 1.2, x, 0.0)
-    before = ota_project.launches
+    before = _launches("ota_project")
     y = ota_project.ota_project(x, seed, 1024)
-    assert ota_project.launches == before + 1
+    assert _launches("ota_project") == before + 1
     assert torch.equal(y, ref.ota_project_ref(x, seed, 1024))
     assert torch.equal(y, distributed.proj_forward(x, seed, 1024, 8))
 
@@ -1396,7 +1400,8 @@ def test_kernels_at_streamed_chunk_shapes_bitwise(dev, n_blocks):
     g = torch.randn(m, n_blocks * c, generator=gen, device=dev) * 0.01
     d = torch.randn(m, n_blocks * c, generator=gen, device=dev) * 0.003
     tau = sampled_topk_threshold(g + d, n_blocks * s // 2)
-    before = (ef_sparsify.launches, ota_project.launches, amp_fused.launches)
+    before = (_launches("ef_sparsify"), _launches("ota_project"),
+              _launches("amp_fused"))
     sp, nd = ef_sparsify.ef_sparsify(g, d, tau)
     assert all(torch.equal(a, b) for a, b in
                zip((sp, nd), ref.ef_sparsify_ref(g, d, tau)))
@@ -1408,8 +1413,8 @@ def test_kernels_at_streamed_chunk_shapes_bitwise(dev, n_blocks):
                                        device=dev)
     got = amp_fused.amp_decode_fused(yb, 0, c, iters=20)
     assert torch.equal(got, amp_blocked_core(yb, 0, c, 20))
-    assert (ef_sparsify.launches, ota_project.launches,
-            amp_fused.launches) == tuple(b + 1 for b in before)
+    assert (_launches("ef_sparsify"), _launches("ota_project"),
+            _launches("amp_fused")) == tuple(b + 1 for b in before)
 
 
 def test_fedllm_round_on_card_bitwise_plain(dev):
