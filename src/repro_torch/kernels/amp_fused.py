@@ -18,13 +18,25 @@ other's shared memory (DSMEM): K = 16 at the main path's 1024 x 4096, a
 function of the block's shape only (:func:`layout.amp_cluster_size`).
 CTA k owns a slice of the columns (x, the adjoint, the threshold) and a
 slice of the rows (the forward product's final sum, z' and y), and every
-CTA keeps a whole copy of z.  Rademacher entries are hashed once per
-decode and kept as sign bits in shared memory (32 KB per CTA at K = 16);
-Gaussian entries are made from the hash in every product.  The partial
-sums cross CTAs in rank order, with no atomics, so runs are bitwise
-repeatable and a sub-range decoded with ``id_offset`` equals the full
-decode's rows bitwise.  At the main path's two blocks the decode runs on
-32 SMs.
+CTA keeps a whole copy of z.  Gaussian entries are made from the hash in
+every product.  Rademacher entries are hashed once per decode and kept as
+sign bits in shared memory, row-major and, where it fits, column-major (32
+KB each per CTA at K = 16).  Before each product the CTA builds, per group
+of 4 consecutive columns (forward) or rows (adjoint)
+(:func:`layout.amp_groups`), a table of the 16 signed sums of x or z in
+float64; a row or column then adds one table entry, indexed by a nibble of
+its sign bits, per 4 entries of A.  What bounds an iteration there is the
+shared-memory bandwidth of those lookups and the latency of the cluster's
+exchanges; a CTA takes ~106 KB of shared memory and 64 registers at the
+main shape, so two share an SM and one's exchanges overlap the other's
+lookups.  Every block whose sign bits alone fitted a CTA still decodes:
+where the tables do not all fit, they are built a chunk at a time, and
+without the column-major copy the adjoint turns the bits around in
+registers.  Every launch on that path adds 1 to the
+``amp_fused.sign_tables`` counter beside ``launches.amp_fused``.  The partial sums cross CTAs in rank order, with
+no atomics, so runs are bitwise repeatable and a sub-range decoded with
+``id_offset`` equals the full decode's rows bitwise.  At the main path's
+two blocks the decode runs on 32 SMs.
 
 A sweep's grid decodes G points in one launch: ``yb`` of shape (G,
 n_blocks, s_block), the same A for every point, the grid's y dimension the
@@ -103,6 +115,8 @@ def _launch(yb: torch.Tensor, seed, c: int, iters: int, threshold_mult: float,
         build.current_stream(yb.device))
     build.check(rc, "amp_decode_fused")
     tracing.count("launches.amp_fused")
+    if rademacher:
+        tracing.count("amp_fused.sign_tables")
     return xb
 
 

@@ -17,6 +17,9 @@ AMP_WARPS = AMP_THREADS // 32
 AMP_MAX_CLUSTER = 16
 #: fewest columns an ``amp_fused`` CTA owns when the block is split
 AMP_MIN_COLUMNS = 256
+#: entries of A one ``amp_fused`` signed-sum table covers (a nibble of sign
+#: bits): consecutive columns of a CTA's slice, or rows of a row segment
+AMP_GROUP = 4
 
 #: ``ota_project``: warps of a CTA, rows a thread owns, rows of a CTA's tile
 OTA_WARPS = 4
@@ -90,6 +93,29 @@ def amp_row_segments(s: int, c: int) -> int:
     segment order.  G spreads the CTA's words over its 16 warps.
     """
     return max(1, min(s, AMP_WARPS // amp_words(s, c)))
+
+
+def amp_groups(lo: int, hi: int) -> list[tuple[int, int]]:
+    """The groups ``[a, b)`` of ``amp_fused``'s signed-sum tables over the
+    items ``[lo, hi)`` of one column slice or row segment: group ``q``
+    starts at ``lo + AMP_GROUP * q``, and the last is short where
+    ``AMP_GROUP`` does not divide ``hi - lo``.  The Rademacher products add
+    a group's entries first, then the groups in this order."""
+    return [(a, min(a + AMP_GROUP, hi)) for a in range(lo, hi, AMP_GROUP)]
+
+
+def amp_column_groups(s: int, c: int) -> list[list[tuple[int, int]]]:
+    """The forward product's groups: ``[rank] -> groups`` of the CTA's
+    column slice ``bounds(c, K)[rank]``."""
+    return [amp_groups(lo, hi)
+            for lo, hi in bounds(c, amp_cluster_size(s, c))]
+
+
+def amp_row_groups(s: int, c: int) -> list[list[tuple[int, int]]]:
+    """The adjoint's groups: ``[segment] -> groups`` of row segment
+    ``bounds(s, G)[segment]``."""
+    return [amp_groups(lo, hi)
+            for lo, hi in bounds(s, amp_row_segments(s, c))]
 
 
 def ota_cluster_size(c: int) -> int:

@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.amp import amp_blocked_core
-from repro_torch.kernels import amp_fused, ef_sparsify, ops, ota_project, ref
+from repro_torch.kernels import (amp_fused, build, ef_sparsify, layout, ops,
+                                 ota_project, ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +151,79 @@ def test_amp_fused_clusters(dev, nb, sb, c, iters, rademacher):
                                       iters=iters, rademacher=rademacher,
                                       id_offset=lo)
     assert torch.equal(part, out[lo:])
+
+
+# (n_blocks, s_block, c, iters): the main path's decode; 500-column
+# slices, whose last word is 20 columns; 501-column slices, whose 21-column
+# last word ends in a part group, over a 102-row segment (no multiple of 4);
+# s = c / 2 at the default c, which keeps the column-major copy of the sign
+# bits; 3072 x 4096 and 2048 x 8192, which turn the bits around in
+# registers instead; 4401 x 4100, whose adjoint tables come in
+# three chunks, and 701 x 32770, whose forward tables come in three and
+# adjoint tables in two, both ragged
+TABLE_SHAPES = [(2, 1024, 4096, 20), (3, 100, 1000, 20), (3, 102, 1002, 20),
+                (2, 2048, 4096, 20), (1, 3072, 4096, 20), (1, 2048, 8192, 20),
+                (1, 4401, 4100, 20), (1, 701, 32770, 20)]
+
+
+@pytest.mark.parametrize("nb,sb,c,iters", TABLE_SHAPES)
+def test_amp_fused_sign_tables_bitwise(dev, nb, sb, c, iters):
+    """The Rademacher decode, its products summed through tables of signed
+    partial sums, equals the plain version bitwise, padded groups and all."""
+    yb = _noisy_block_sparse(nb, c, sb, True, _gen(dev, 7 * nb + sb), dev)
+    out = amp_fused.amp_decode_fused(yb, 9, c, iters=iters)
+    want = amp_blocked_core(yb, 9, c, iters=iters)
+    assert torch.equal(out, want)
+    assert int((want != 0).sum()) > 0
+
+
+def _one_bit_per_entry_bytes(s, c):
+    """Shared memory of a Rademacher CTA that keeps one sign bit per entry
+    of A (rows at an odd stride of words), partials and z in float64, and
+    no tables."""
+    k = layout.amp_cluster_size(s, c)
+    g = layout.amp_row_segments(s, c)
+    cw, rw = -(-c // k), -(-s // k)
+    words = (cw + 31) // 32
+    doubles = s + max(s, g * words * 32) + cw + rw + 4 + layout.AMP_WARPS
+    return doubles * 8 + 4 * (layout.AMP_WARPS + 1 + rw + s * (words | 1))
+
+
+def test_amp_fused_tables_fit_where_one_bit_per_entry_did(dev):
+    """Every Rademacher block whose sign bits, one per entry of A, fitted
+    a CTA's 227 KB of shared memory still fits beside the tables: at the
+    largest such s of each c, and at every s up to 64."""
+    lib = build.library()
+    limit = 232448
+    cs = list(range(1, 4200, 7)) + list(range(4200, 120000, 331))
+    checked = 0
+    for c in cs:
+        lo, hi = 0, 1
+        while _one_bit_per_entry_bytes(hi, c) <= limit:
+            lo, hi = hi, 2 * hi
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if _one_bit_per_entry_bytes(mid, c) <= limit \
+                else (lo, mid)
+        for s in set(range(1, min(lo, 64) + 1)) | ({lo} if lo else set()):
+            k = layout.amp_cluster_size(s, c)
+            g = layout.amp_row_segments(s, c)
+            assert lib.amp_fused_smem_bytes(s, c, k, g, 1) <= limit, (s, c)
+            checked += 1
+    assert checked > 10000
+
+
+@pytest.mark.parametrize("rademacher,tables", [(True, 1), (False, 0)])
+def test_amp_fused_counts_sign_tables_on_card(dev, rademacher, tables):
+    """A Rademacher launch adds 1 to ``amp_fused.sign_tables``, a Gaussian
+    launch 0; each adds 1 to ``launches.amp_fused``."""
+    yb = _noisy_block_sparse(2, 1000, 100, rademacher, _gen(dev, 5), dev)
+    before = tracing.totals().get("amp_fused.sign_tables", 0)
+    launches = _launches("amp_fused")
+    amp_fused.amp_decode_fused(yb, 9, 1000, iters=3, rademacher=rademacher)
+    assert _launches("amp_fused") == launches + 1
+    assert tracing.totals().get("amp_fused.sign_tables", 0) == \
+        before + tables
 
 
 def test_amp_fused_shapes_in_any_order(dev):

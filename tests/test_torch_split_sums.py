@@ -4,7 +4,9 @@
 ``csrc/ota_project.cu`` splits one block's columns over a cluster and its
 warps, and ``csrc/ota_project_t.cu`` splits one column tile's rows over a
 cluster.  Each cuts a float64 sum into partials and adds them in a fixed
-order, which changes only the order of float64 adds.  Here each product of
+order, which changes only the order of float64 adds; ``amp_fused``'s
+Rademacher products also add groups of 4 entries first, through tables of
+signed partial sums (``_amp_tables``).  Here each product of
 the plain versions is cut into exactly the slices that
 ``repro_torch.kernels.layout`` gives the kernels, the partials are added in
 the kernels' order, and the float32 result must equal the unsplit plain
@@ -67,6 +69,63 @@ def _amp_split(yb, seed, c, iters, rademacher=True, threshold_mult=1.3):
     return x * torch.clamp(factor.float(), 1.0, 2.0), (k, g)
 
 
+def _table_sum(terms, groups):
+    """Sum over the last axis of ``terms`` as ``amp_fused``'s table lookups
+    add it: each group's entries in order, then the groups ascending from
+    0.0 (a short group's padded entries add +0.0, which changes nothing)."""
+    acc = torch.zeros_like(terms[..., 0])
+    for lo, hi in groups:
+        group = terms[..., lo]
+        for i in range(lo + 1, hi):
+            group = group + terms[..., i]
+        acc = acc + group
+    return acc
+
+
+def _amp_tables(yb, seed, c, iters, threshold_mult=1.3):
+    """The Rademacher kernel's decode with its products summed in the
+    kernel's order: +-1 signs times x or z in float64, a table group of
+    ``layout.AMP_GROUP`` entries first, then the groups ascending within a
+    CTA's column slice (forward) or a row segment (adjoint), then the K
+    slices in rank order or the G segments in segment order, and the
+    scale applied once before the rounding to float32.  ||z||^2 and the
+    debias dots are cut as in :func:`_amp_split`."""
+    n_blocks, s = yb.shape
+    col_groups = layout.amp_column_groups(s, c)
+    row_groups = layout.amp_row_groups(s, c)
+    rows = layout.bounds(s, layout.amp_cluster_size(s, c))
+    scale = ref.entry_scale(s)
+    A = ref.block_matrix_ref(seed, torch.arange(n_blocks), s, c)
+    signs = torch.where(A > 0, 1.0, -1.0).double()
+
+    def adjoint(z):
+        terms = (signs * z.double()[:, :, None]).transpose(1, 2)
+        return (_ordered([_table_sum(terms, groups) for groups in row_groups])
+                * scale).float()
+
+    def forward(x):
+        terms = signs * x.double()[:, None, :]
+        return (_ordered([_table_sum(terms, groups) for groups in col_groups])
+                * scale).float()
+
+    def dot(a, b):
+        prod = a.double() * b.double()
+        return _ordered([prod[:, lo:hi].sum(-1, keepdim=True)
+                         for lo, hi in rows])
+
+    sqrt_s = _sqrt_f32(s)
+    x = torch.zeros((n_blocks, c), dtype=torch.float32)
+    z = yb
+    for _ in range(iters):
+        sigma = torch.sqrt(dot(z, z)).float() / sqrt_s
+        x = soft_threshold(x + adjoint(z), threshold_mult * sigma)
+        onsager = z * ((x != 0.0).sum(dim=-1, keepdim=True) / s)
+        z = yb - forward(x) + onsager
+    ax = forward(x)
+    factor = dot(ax, yb) / torch.clamp(dot(ax, ax), min=1e-12)
+    return x * torch.clamp(factor.float(), 1.0, 2.0)
+
+
 def _noisy_block_sparse(n_blocks, c, s, seed, rademacher=True):
     rs = np.random.RandomState(seed)
     x = np.zeros((n_blocks, c), np.float32)
@@ -87,6 +146,50 @@ def test_amp_split_sums_bitwise(n_blocks, s, c, want_k):
     plain = amp_blocked_core(yb, 777, c, iters=20, use_kernel=False)
     assert torch.equal(split, plain)
     assert int((plain != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n_blocks,s,c,last_col_group,last_row_group", [
+    (2, 1024, 4096, 4, 4),   # the main path's decode
+    (3, 100, 1000, 4, 4),    # 500-column slices, a last word of 20 columns
+    (3, 102, 1002, 1, 2),    # 501-column slices end in a part group and a
+                             # 21-column word; a 102-row segment
+    (512, 32, 64, 4, 4),     # one-CTA clusters, eight 4-row segments
+])
+def test_amp_table_sums_bitwise(n_blocks, s, c, last_col_group,
+                                last_row_group):
+    """The Rademacher kernel's sums from tables of signed partial sums, in
+    its order, give the plain version's float32 result bitwise; both padded
+    edges are exercised where the widths are no multiple of 4."""
+    assert layout.amp_column_groups(s, c)[-1][-1][1] - \
+        layout.amp_column_groups(s, c)[-1][-1][0] == last_col_group
+    assert layout.amp_row_groups(s, c)[-1][-1][1] - \
+        layout.amp_row_groups(s, c)[-1][-1][0] == last_row_group
+    yb = _noisy_block_sparse(n_blocks, c, s, seed=s + c)
+    tables = _amp_tables(yb, 777, c, iters=20)
+    plain = amp_blocked_core(yb, 777, c, iters=20, use_kernel=False)
+    assert torch.equal(tables, plain)
+    assert int((plain != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("s,c", [(1024, 4096), (100, 1000), (102, 1002),
+                                 (32, 64), (256, 1024), (2048, 4096),
+                                 (7, 4099)])
+def test_amp_groups_cover_in_order(s, c):
+    """``amp_fused``'s table groups cover every column slice and row
+    segment once, in order, from the slice's or segment's first entry, all
+    of ``AMP_GROUP`` entries but a slice's or segment's last."""
+    for parts, slices in ((layout.amp_column_groups(s, c),
+                           layout.bounds(c, layout.amp_cluster_size(s, c))),
+                          (layout.amp_row_groups(s, c),
+                           layout.bounds(s, layout.amp_row_segments(s, c)))):
+        assert len(parts) == len(slices)
+        for groups, (lo, hi) in zip(parts, slices):
+            assert groups[0][0] == lo and groups[-1][1] == hi
+            assert all(b == a2 for (_, b), (a2, _) in zip(groups, groups[1:]))
+            assert all(b - a == layout.AMP_GROUP for a, b in groups[:-1])
+            assert 1 <= groups[-1][1] - groups[-1][0] <= layout.AMP_GROUP
+            assert [a for a, _ in groups] == list(
+                range(lo, hi, layout.AMP_GROUP))
 
 
 def test_ota_split_sums_bitwise():

@@ -205,13 +205,31 @@ def test_launches_are_counters_charged_to_the_innermost_span(monkeypatch):
     assert by == [("round", {}),
                   ("stream.encode", {"launches.ef_sparsify": 1}),
                   ("encode.project", {"launches.ota_project": 1}),
-                  ("stream.decode", {"launches.amp_fused": 1, "extra": 5})]
+                  ("stream.decode", {"launches.amp_fused": 1,
+                                     "amp_fused.sign_tables": 1, "extra": 5})]
     assert rec["counters"] == {"launches.ef_sparsify": 1,
                                "launches.ota_project": 1,
-                               "launches.amp_fused": 1, "extra": 5}
+                               "launches.amp_fused": 1,
+                               "amp_fused.sign_tables": 1, "extra": 5}
     ops.reset_launches()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     assert tracing.totals()["extra"] >= 5
+
+
+@pytest.mark.parametrize("rademacher,tables", [(True, 1), (False, 0)])
+def test_amp_fused_counts_its_sign_tables(monkeypatch, rademacher, tables):
+    """A launch of the Rademacher decode, which sums through tables of
+    signed partial sums, adds 1 to ``amp_fused.sign_tables``; a Gaussian
+    one adds 0.  Both count one launch."""
+    monkeypatch.setattr(build, "library", lambda: _StubLibrary())
+    monkeypatch.setattr(build, "require_cuda_f32", lambda *a, **k: None)
+    monkeypatch.setattr(build, "current_stream", lambda dev: 0)
+    before = tracing.totals().get("amp_fused.sign_tables", 0)
+    launches = ops.launch_counts()["amp_fused"]
+    amp_fused._launch(torch.zeros(2, 4), 3, 8, 2, 1.3, True, rademacher, 0)
+    assert ops.launch_counts()["amp_fused"] == launches + 1
+    assert tracing.totals().get("amp_fused.sign_tables", 0) == \
+        before + tables
 
 
 @pytest.mark.parametrize("scheme", ["d_dsgd", "ideal"])
