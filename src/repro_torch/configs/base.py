@@ -26,6 +26,7 @@ SWA = "swa"              # sliding-window self-attention + MLP
 MAMBA2 = "mamba2"        # Mamba2 (SSD) mixer block
 RWKV6 = "rwkv6"          # RWKV-6 (Finch) time-mix + channel-mix block
 MOE = "moe"              # GQA self-attention + MoE MLP
+MAMBA2_MLP = "mamba2_mlp"  # Mamba2 mixer + MLP in one block (granite-4.0-h)
 
 
 @dataclass(frozen=True)
@@ -43,6 +44,12 @@ class SSMConfig:
     head_dim: int = 64     # SSD head dim
     conv_width: int = 4
     chunk: int = 256       # SSD chunk length
+    # the published Mamba2 mixer (opt-in; the port's own, beyond the
+    # reference): one input projection, the causal conv over x, B and C
+    # with bias, ``n_groups`` groups of B and C, a zero-padded last chunk
+    # and the gated RMSNorm of ``y * silu(z)``
+    published: bool = False
+    n_groups: int = 1
 
 
 @dataclass(frozen=True)
@@ -92,6 +99,13 @@ class ArchConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     n_vision_tokens: int = 0         # stub patch-embedding prefix length
     citation: str = ""
+    # Granite's multipliers and position embedding (the port's own, beyond
+    # the reference); the defaults leave every other config's bits alone
+    embedding_multiplier: float = 1.0    # scales the token embeddings
+    attention_multiplier: Optional[float] = None  # score scale; None: 1/sqrt(hd)
+    residual_multiplier: float = 1.0     # scales each block branch
+    logits_scaling: float = 1.0          # divides the logits
+    position_embedding: str = "rope"     # rope | nope
 
     @property
     def resolved_head_dim(self) -> int:
@@ -314,10 +328,14 @@ ARCH_IDS = (
 )
 
 
+#: configs of the port alone (``ARCH_IDS`` mirrors the reference's list)
+PORT_ARCH_IDS = ("mnist_mlp", "granite_4_0_h_micro")
+
+
 def get_config(arch: str) -> ArchConfig:
     arch = arch.replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS and arch != "mnist_mlp":
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + ('mnist_mlp',)}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 
@@ -361,6 +379,8 @@ def approx_param_count(cfg: ArchConfig) -> int:
             total += attn + moe
         elif kind == MAMBA2:
             total += ssm
+        elif kind == MAMBA2_MLP:
+            total += _published_ssm_count(cfg) + swiglu
         elif kind == RWKV6:
             total += rwkv
     if cfg.shared_attn_every:
@@ -370,6 +390,16 @@ def approx_param_count(cfg: ArchConfig) -> int:
         total += e.n_layers * (4 * e.d_model * e.d_model + 2 * e.d_model * e.d_ff)
         total += cfg.n_layers * (4 * cfg.d_model * cfg.d_model)  # cross-attn
     return int(total)
+
+
+def _published_ssm_count(cfg: ArchConfig) -> int:
+    """The published Mamba2 mixer's parameters, with its block's norms."""
+    s, d = cfg.ssm, cfg.d_model
+    d_in = s.expand * d
+    heads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return (d * (d_in + conv_dim + heads) + (s.conv_width + 1) * conv_dim
+            + 3 * heads + d_in + d_in * d + 2 * d)
 
 
 def active_param_count(cfg: ArchConfig) -> int:

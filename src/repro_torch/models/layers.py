@@ -140,6 +140,8 @@ class AttnSpec:
     causal: bool = True
     mrope_sections: Optional[Tuple[int, int, int]] = None
     norm_eps: float = 1e-5
+    rope: bool = True                # False: no position embedding (NoPE)
+    scale: Optional[float] = None    # the scores' factor; None: 1/sqrt(hd)
 
 
 def init_attention(key, spec: AttnSpec) -> Params:
@@ -186,6 +188,8 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
       at slot ``cache_index`` (a python int) and attention runs over the
       whole cache.  The cache's tensors are updated in place (the reference
       donates them) and returned as the new cache.
+    ``spec.rope`` False leaves q and k unrotated (NoPE); ``spec.scale``
+    multiplies the float32 scores in place of the division by sqrt(hd).
     kv_source: cross-attention source (B, Lsrc, D) (whisper decoder).
     Returns (out, new_kv_cache|None).
     """
@@ -201,7 +205,9 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     new_cache = None
     if kv_source is None:  # no rope on cross-attention
         kpos = kv_positions if kv_positions is not None else positions
-        if spec.mrope_sections is not None:
+        if not spec.rope:
+            q_pos1 = positions
+        elif spec.mrope_sections is not None:
             q = apply_mrope(q, positions, spec.rope_theta,
                             spec.mrope_sections)
             k = apply_mrope(k, kpos, spec.rope_theta, spec.mrope_sections)
@@ -231,7 +237,10 @@ def attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     groups = hq // hkv
     qg = q.reshape(B, L, hkv, groups, h)
     scores = torch.einsum("blkgh,bmkh->bklgm", qg, k).float()
-    scores = scores / float(np.sqrt(np.float32(h)))
+    if spec.scale is None:
+        scores = scores / float(np.sqrt(np.float32(h)))
+    else:
+        scores = scores * float(np.float32(spec.scale))
     scores = scores + bias[:, 0][:, None, :, None, :]   # (B,hkv,L,g,M)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bklgm,bmkh->blkgh", probs, v)

@@ -54,6 +54,8 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
     def chunk_nll(hc, tc):
         lg = (hc @ w_head.to(hc.dtype)).float()
+        if cfg.logits_scaling != 1.0:
+            lg = lg / cfg.logits_scaling
         logp = torch.log_softmax(lg, dim=-1)
         return -torch.gather(logp, -1, tc[..., None])[..., 0]
 

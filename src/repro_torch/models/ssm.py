@@ -19,6 +19,17 @@ Three places follow the reference's bits rather than torch's defaults:
   ``F.softplus`` switches to x above 20 (:func:`softplus`);
 * the intra-chunk decay is masked before its ``exp``: an unmasked entry
   (t < s) can overflow, and its gradient through the mask is inf * 0.
+
+``SSMConfig.published`` selects the published Mamba2 mixer instead, as
+``GraniteMoeHybridMambaLayer.torch_forward`` (transformers) computes it:
+one input projection to ``[z, xBC, dt]``; the causal depthwise conv with
+bias and SiLU over the concatenation of x, B and C (``conv_dim = d_in + 2
+n_groups d_state`` channels); B and C in ``n_groups`` groups, head ``h``
+reading group ``h // (H / n_groups)``; ``dt = softplus(dt + dt_bias)``
+(the time-step limit (0, inf) clamps nothing); the SSD over chunks of
+``chunk`` steps, the last zero-padded, with the intra-chunk decay from
+segment sums; the D skip; ``rms_norm(y * silu(z))`` over ``d_in`` in
+float32; and ``out_proj``.  It has no decode state here.
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models.layers import _dense_init, init_rmsnorm, rms_norm
 
@@ -63,6 +74,8 @@ def a_log_init(n_heads: int, device=None) -> torch.Tensor:
 
 def init_mamba2(key, d_model: int, cfg: SSMConfig) -> Params:
     """A key ``(2,)`` or a stack of keys ``(n, 2)`` (the stacked layers)."""
+    if cfg.published:
+        return _init_published(key, d_model, cfg)
     d_in = cfg.expand * d_model
     n_heads = d_in // cfg.head_dim
     ks = rng.split(key, 8).unbind(-2)
@@ -197,13 +210,19 @@ def _ssd_chunked(dt, decay, xh, bf, cf, chunk, h0):
 
 
 def mamba2_forward(p: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
-                   state: Optional[Params] = None
+                   state: Optional[Params] = None, eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, L, D). state (decode): {"ssm": (B,H,hd,N), "conv": (B,W-1,d_in)}.
+    ``eps``: the published mixer's gated RMSNorm.
 
     Training/prefill: state is None -> chunked scan from the zero state.
     Decode: L == 1 is the one-step recurrence; returns the updated state.
     """
+    if cfg.published:
+        if state is not None:
+            raise NotImplementedError("the published Mamba2 mixer has no "
+                                      "decode state in the port")
+        return _published_forward(p, x, d_model, cfg, eps), None
     B, L, _ = x.shape
     d_in = cfg.expand * d_model
     hd, N = cfg.head_dim, cfg.d_state
@@ -239,6 +258,141 @@ def mamba2_forward(p: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     y = y * F.silu(z.reshape(B, L, H, hd).float())
     y = rms_norm(y.reshape(B, L, d_in).to(x.dtype), p["out_norm"])
     return y @ p["w_out"].to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# the published Mamba2 mixer
+# ---------------------------------------------------------------------------
+
+
+def published_sizes(d_model: int, cfg: SSMConfig) -> Tuple[int, int, int]:
+    """``(d_in, heads, conv_dim)`` of the published mixer."""
+    d_in = cfg.expand * d_model
+    return d_in, d_in // cfg.head_dim, d_in + 2 * cfg.n_groups * cfg.d_state
+
+
+def _init_published(key, d_model: int, cfg: SSMConfig) -> Params:
+    """The published mixer's params.  Random weights as the port draws
+    them: the projections truncated normal over ``sqrt(fan_in)``, the conv
+    taps ``normal / sqrt(conv_width)``, its bias 0; ``a_log = log(1..H)``,
+    ``dt_bias = 1`` and ``D = 1`` as transformers initialises them."""
+    d_in, H, conv_dim = published_sizes(d_model, cfg)
+    ks = rng.split(key, 3).unbind(-2)
+    lead, dev = tuple(key.shape[:-1]), key.device
+
+    def const(v, n):
+        return torch.full(lead + (n,), v, dtype=torch.float32, device=dev)
+
+    if dev.type == "meta":
+        a_log = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
+    else:
+        a_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32)).to(
+            dev).expand(lead + (H,)).clone()
+    return {
+        "w_in": _dense_init(ks[0], d_model, d_in + conv_dim + H),
+        "conv_w": rng.normal(ks[1], (cfg.conv_width, conv_dim))
+        * float(np.float32(1.0) / np.sqrt(np.float32(cfg.conv_width))),
+        "conv_b": const(0.0, conv_dim),
+        "a_log": a_log,
+        "dt_bias": const(1.0, H),
+        "d_skip": const(1.0, H),
+        "out_norm": init_rmsnorm(d_in, lead, dev),
+        "w_out": _dense_init(ks[2], d_in, d_model),
+    }
+
+
+def _conv_published(xbc: torch.Tensor, conv_w: torch.Tensor,
+                    conv_b: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise conv with bias, summed in float32 and rounded
+    once to the activations' dtype (as a float32-accumulating conv), then
+    SiLU."""
+    W, L = conv_w.shape[0], xbc.shape[1]
+    xp = F.pad(xbc, (0, 0, W - 1, 0)).float()
+    out = conv_b
+    for i in range(W):
+        out = out + xp[:, i:i + L] * conv_w[i]
+    return F.silu(out.to(xbc.dtype))
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """``(..., Q) -> (..., Q, Q)``: entry ``[i, j]`` is ``a[j+1] + ... +
+    a[i]`` for ``j <= i`` (each a sum of its own, not a difference of two
+    cumulative sums), ``-inf`` above the diagonal."""
+    Q = a.shape[-1]
+    x = a[..., None].expand(*a.shape, Q)
+    below = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=a.device),
+                       diagonal=-1)
+    x = torch.cumsum(x.masked_fill(~below, 0.0), dim=-2)
+    keep = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=a.device))
+    return x.masked_fill(~keep, -torch.inf)
+
+
+def ssd_published(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    """The chunked SSD from the zero state, in float32.
+
+    ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)`` (negative), ``b``,
+    ``c (B, L, G, N)``; returns ``y (B, L, H, P)`` of ``h_t = exp(dt_t a)
+    h_{t-1} + dt_t x_t b_t^T``, ``y_t = c_t h_t`` (without the D skip).
+    Heads are grouped ``(G, H / G)``.  L is zero-padded to whole chunks
+    (``dt = 0`` there: no decay, no input)."""
+    Bsz, L, H, P = x.shape
+    G, N = b.shape[-2:]
+    R = H // G
+    pad = (-L) % chunk
+    nC = (L + pad) // chunk
+    tracing.count("ssd.chunks", nC)
+
+    def chunks(t):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((Bsz, nC, chunk) + t.shape[2:])
+
+    xc = chunks(x * dt[..., None]).reshape(Bsz, nC, chunk, G, R, P)
+    bc, cc = chunks(b), chunks(c)                           # (B,nC,Q,G,N)
+    adt = chunks(dt * a).permute(0, 3, 1, 2)                # (B,H,nC,Q)
+    acum = torch.cumsum(adt, dim=-1)
+    # 1. within each chunk: y_l = sum_{s<=l} (c_l . b_s) exp(a_{s+1..l}) x_s
+    decay = torch.exp(_segsum(adt)).reshape(Bsz, G, R, nC, chunk, chunk)
+    cb = torch.einsum("bclgn,bcsgn->bcgls", cc, bc)
+    m = cb[:, :, :, None] * decay.permute(0, 3, 1, 2, 4, 5)  # (B,nC,G,R,Q,Q)
+    y = torch.einsum("bcgrls,bcsgrp->bclgrp", m, xc)
+    # 2. each chunk's own state at its end
+    tail = torch.exp(acum[..., -1:] - acum).reshape(Bsz, G, R, nC, chunk)
+    states = torch.einsum("bcsgn,bgrcs,bcsgrp->bcgrpn", bc, tail, xc)
+    # 3. the states carried across chunks
+    edge = torch.exp(acum[..., -1]).reshape(Bsz, G, R, nC)
+    h = states.new_zeros(states[:, 0].shape)               # (B,G,R,P,N)
+    prev = []
+    for i in range(nC):
+        prev.append(h)
+        h = edge[..., i, None, None] * h + states[:, i]
+    prev = torch.stack(prev, dim=1)                         # (B,nC,G,R,P,N)
+    # 4. the carried state's output, decayed from the chunk's start
+    into = torch.exp(acum).reshape(Bsz, G, R, nC, chunk)
+    y = y + torch.einsum("bclgn,bcgrpn,bgrcl->bclgrp", cc, prev, into)
+    return y.reshape(Bsz, nC * chunk, H, P)[:, :L]
+
+
+def _published_forward(p: Params, x: torch.Tensor, d_model: int,
+                       cfg: SSMConfig, eps: float) -> torch.Tensor:
+    Bsz, L, _ = x.shape
+    d_in, H, conv_dim = published_sizes(d_model, cfg)
+    G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
+    z, xbc, dt = (x @ p["w_in"].to(x.dtype)).split([d_in, conv_dim, H], -1)
+    xbc = _conv_published(xbc, p["conv_w"], p["conv_b"])
+    xs, b, c = xbc.split([d_in, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])             # (B, L, H)
+    a = -torch.exp(p["a_log"].float())
+    xh = xs.reshape(Bsz, L, H, P).float()
+    y = ssd_published(xh, dt, a, b.reshape(Bsz, L, G, N).float(),
+                      c.reshape(Bsz, L, G, N).float(), cfg.chunk)
+    y = y + p["d_skip"][:, None] * xh
+    # the gated RMSNorm, in float32 as published
+    g = y.reshape(Bsz, L, d_in) * F.silu(z.float())
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    g = p["out_norm"]["w"] * (g * torch.rsqrt(var + eps))
+    return g.to(x.dtype) @ p["w_out"].to(x.dtype)
 
 
 def init_mamba2_state(cfg: SSMConfig, d_model: int, batch: int,

@@ -14,13 +14,22 @@ homogeneous per architecture:
   zamba2's hybrid layout: ``n_layers // every`` super-blocks of ``every``
   Mamba2 layers and one application of the weight-shared attention block,
   then the remaining Mamba2 layers;
-* RWKV-6 time-mix and channel-mix (``RWKV6``, :mod:`repro_torch.models.rwkv`).
+* RWKV-6 time-mix and channel-mix (``RWKV6``, :mod:`repro_torch.models.rwkv`);
+* granite-4.0-h's pattern of two block kinds, the published Mamba2 mixer
+  followed by a SwiGLU MLP in one residual block (``MAMBA2_MLP``) and GQA
+  attention with its MLP (``ATTN``), each kind's layers stacked apart
+  (``params["blocks"][kind]``) and run in the pattern's order, with
+  Granite's multipliers (``ArchConfig.embedding_multiplier``,
+  ``attention_multiplier``, ``residual_multiplier`` on each branch,
+  ``logits_scaling``) and NoPE attention; it has no decode path.
 
 The reference scans its layers over stacked params; here the stacked
 leaves ``(n_layers, ...)`` are unbound once per forward and the layers run
 in a loop.  ``remat`` (``jax.checkpoint``) becomes
 ``torch.utils.checkpoint`` per block, with the same values; in the hybrid
 stack only the Mamba2 layers are rematerialised, as in the reference.
+Each self-attention mixer runs in a ``model.attention`` span and each
+Mamba2 mixer in a ``model.mamba`` span (:mod:`repro_torch.tracing`).
 Decode (``cache=`` of :func:`forward`) carries one state per layer,
 stacked over the layers as :func:`init_cache` builds it: the KV caches
 (``{"kv"}``, written in place), Mamba2's and RWKV-6's recurrent states
@@ -29,14 +38,16 @@ and zamba2's ``{"mamba", "shared"}``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import rng
-from repro_torch.configs.base import ATTN, MAMBA2, MOE, RWKV6, SWA, ArchConfig
+from repro_torch import rng, tracing
+from repro_torch.configs.base import (
+    ATTN, MAMBA2, MAMBA2_MLP, MOE, RWKV6, SWA, ArchConfig,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -64,13 +75,30 @@ def attn_spec(cfg: ArchConfig, sliding: bool = False,
                     n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
                     qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
                     sliding_window=window, causal=causal,
-                    mrope_sections=cfg.mrope_sections, norm_eps=cfg.norm_eps)
+                    mrope_sections=cfg.mrope_sections, norm_eps=cfg.norm_eps,
+                    rope=cfg.position_embedding != "nope",
+                    scale=cfg.attention_multiplier)
 
 
 def block_kind(cfg: ArchConfig) -> str:
     kinds = set(cfg.blocks())
     assert len(kinds) == 1, f"heterogeneous stack unsupported: {kinds}"
     return next(iter(kinds))
+
+
+def kind_layers(cfg: ArchConfig) -> List[Tuple[str, Tuple[int, ...]]]:
+    """Each block kind of the pattern and its layers' indices, the kinds in
+    the order they first appear."""
+    out: Dict[str, List[int]] = {}
+    for i, kind in enumerate(cfg.blocks()):
+        out.setdefault(kind, []).append(i)
+    return [(k, tuple(v)) for k, v in out.items()]
+
+
+def _branch(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """A block branch's output scaled by ``residual_multiplier``."""
+    m = cfg.residual_multiplier
+    return h if m == 1.0 else h * m
 
 
 def _encoder_spec(cfg: ArchConfig) -> AttnSpec:
@@ -109,6 +137,11 @@ def init_layer(key, cfg: ArchConfig, kind: str) -> Params:
     if kind == MAMBA2:
         return {"ln1": init_rmsnorm(d, lead, dev),
                 "mamba": ssm_lib.init_mamba2(ks[0], d, cfg.ssm)}
+    if kind == MAMBA2_MLP:
+        return {"ln1": init_rmsnorm(d, lead, dev),
+                "ln2": init_rmsnorm(d, lead, dev),
+                "mamba": ssm_lib.init_mamba2(ks[0], d, cfg.ssm),
+                "mlp": init_swiglu(ks[1], d, cfg.d_ff)}
     if kind == RWKV6:
         return {"ln1": init_rmsnorm(d, lead, dev),
                 "ln2": init_rmsnorm(d, lead, dev),
@@ -120,15 +153,21 @@ def init_layer(key, cfg: ArchConfig, kind: str) -> Params:
 def init_params(cfg: ArchConfig, key) -> Params:
     """The model's params from ``key`` (a :mod:`repro_torch.rng` key), on
     the key's device: the reference's draws bit for bit (the stacked
-    layers as its ``vmap`` draws them)."""
-    kind = block_kind(cfg)
+    layers as its ``vmap`` draws them).  A pattern of several kinds stacks
+    each kind's layers apart, from their own layers' keys."""
     k_embed, k_blocks, k_head, k_shared, k_enc = rng.split(key, 5).unbind(-2)
     layer_keys = rng.split(k_blocks, cfg.n_layers)
+    kinds = kind_layers(cfg)
+    if len(kinds) == 1:
+        blocks = init_layer(layer_keys, cfg, kinds[0][0])
+    else:
+        blocks = {kind: init_layer(layer_keys[list(idx)], cfg, kind)
+                  for kind, idx in kinds}
     dev = key.device
     params: Params = {
         "embed": rng.normal(k_embed, (cfg.vocab, cfg.d_model))
         * float(np.float32(0.02)),
-        "blocks": init_layer(layer_keys, cfg, kind),
+        "blocks": blocks,
         "final_norm": init_rmsnorm(cfg.d_model, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -169,11 +208,12 @@ def apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
         spec = attn_spec(cfg, sliding=(kind == SWA
                                        or cfg.sliding_window is not None),
                          decode_window=decode_window)
-        h, kv = attention(p["attn"], spec,
-                          rms_norm(x, p["ln1"], cfg.norm_eps), positions,
-                          kv_cache=None if cache is None else cache["kv"],
-                          cache_index=cache_index)
-        x = x + h
+        h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+        with tracing.span("model.attention"):
+            h, kv = attention(p["attn"], spec, h_in, positions,
+                              kv_cache=None if cache is None else cache["kv"],
+                              cache_index=cache_index)
+        x = x + _branch(cfg, h)
         if enc_out is not None:   # whisper decoder cross-attention
             hx, _ = attention(p["xattn"], attn_spec(cfg, causal=False),
                               rms_norm(x, p["ln_x"], cfg.norm_eps),
@@ -187,13 +227,20 @@ def apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
         else:
             h2 = swiglu(p["mlp"], h2_in)
         new_cache = None if cache is None else dict(cache, kv=kv)
-        return x + h2, new_cache, aux
-    if kind == MAMBA2:
-        h, st = ssm_lib.mamba2_forward(
-            p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.d_model,
-            cfg.ssm, None if cache is None else cache["ssm_state"])
+        return x + _branch(cfg, h2), new_cache, aux
+    if kind in (MAMBA2, MAMBA2_MLP):
+        h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+        with tracing.span("model.mamba"):
+            h, st = ssm_lib.mamba2_forward(
+                p["mamba"], h_in, cfg.d_model, cfg.ssm,
+                None if cache is None else cache["ssm_state"],
+                eps=cfg.norm_eps)
         new_cache = None if cache is None else dict(cache, ssm_state=st)
-        return x + h, new_cache, aux
+        x = x + _branch(cfg, h)
+        if kind == MAMBA2_MLP:
+            x = x + _branch(cfg, swiglu(p["mlp"],
+                                        rms_norm(x, p["ln2"], cfg.norm_eps)))
+        return x, new_cache, aux
     if kind == RWKV6:
         st = None if cache is None else cache["rwkv"]
         h, st_t = rwkv_lib.rwkv6_time_mix(
@@ -214,8 +261,10 @@ def _apply_shared_attn(p: Params, cfg: ArchConfig, x, positions,
                        decode_window: Optional[int] = None):
     """Zamba2's weight-shared attention block; returns (x, new_kv_cache)."""
     spec = attn_spec(cfg, decode_window=decode_window)
-    h, kv = attention(p["attn"], spec, rms_norm(x, p["ln1"], cfg.norm_eps),
-                      positions, kv_cache=cache, cache_index=cache_index)
+    h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+    with tracing.span("model.attention"):
+        h, kv = attention(p["attn"], spec, h_in, positions, kv_cache=cache,
+                          cache_index=cache_index)
     x = x + h
     return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), kv
 
@@ -275,9 +324,11 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     layers' states stacked as :func:`init_cache` builds them; ``remat`` is
     off there (it changes no value).
     """
-    kind = block_kind(cfg)
+    kinds = cfg.blocks()
     B = tokens.shape[0]
     x = params["embed"].to(compute_dtype)[tokens.long()]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     remat = remat and cache is None
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(compute_dtype), x], dim=1)
@@ -292,15 +343,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         else:
             positions = pos1
 
-    def block(lp, x, lc=None):
+    def block(lp, x, lc=None, kind=kinds[0]):
         return apply_block(lp, cfg, kind, x, positions, cache=lc,
                            cache_index=cache_index, enc_out=enc_out,
                            decode_window=decode_window)
 
-    def run_block(lp, x, lc):
+    def run_block(lp, x, lc, kind):
         if remat:
-            return checkpoint(block, lp, x, use_reentrant=False)
-        return block(lp, x, lc)
+            return checkpoint(block, lp, x, None, kind, use_reentrant=False)
+        return block(lp, x, lc, kind)
 
     # zamba2: [every x mamba, shared attention] * n_shared + tail mamba
     every = cfg.shared_attn_every
@@ -311,9 +362,19 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         lcaches = layer_params(stack, cfg.n_layers)
         if every:
             acaches = layer_params(cache["shared"], n_shared)
+    stacks = kind_layers(cfg)
+    if len(stacks) == 1:
+        lps = layer_params(params["blocks"], cfg.n_layers)
+    else:
+        if cache is not None:
+            raise NotImplementedError("no decode path for a pattern of "
+                                      "several block kinds")
+        per = {k: iter(layer_params(params["blocks"][k], len(idx)))
+               for k, idx in stacks}
+        lps = [next(per[k]) for k in kinds]
     auxs, new_l, new_a = [], [], []
-    for i, lp in enumerate(layer_params(params["blocks"], cfg.n_layers)):
-        x, lc, aux = run_block(lp, x, lcaches[i])
+    for i, lp in enumerate(lps):
+        x, lc, aux = run_block(lp, x, lcaches[i], kinds[i])
         auxs.append(aux)
         new_l.append(lc)
         if every and (i + 1) % every == 0:
@@ -352,7 +413,10 @@ def _restack(stacked, old: List[Params], new: List[Params]):
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w.to(x.dtype)).float()
+    logits = (x @ w.to(x.dtype)).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig, OTAConfig, TrainConfig
 from repro_torch.convert import tree_leaves, tree_map, unravel
@@ -148,22 +148,28 @@ class TrainStep:
 
     def step_fn(self, params, opt_state, delta, batch, step, key):
         """``(params, opt_state, delta, metrics)`` after one step; with
-        ``donate`` the new error state is written over ``delta``."""
+        ``donate`` the new error state is written over ``delta``.  The step
+        is a ``round`` span of :mod:`repro_torch.tracing` (``t`` the step),
+        its phases 1 and 2 the spans ``step.grads`` and ``step.aggregate``,
+        all opened in the calling thread."""
         dev = self.device
         step, key = int(step), key.to(dev)
-        t0 = clock(dev)
-        gstack, metrics, scatter_s = self.grads_fn(params, batch)
-        t1 = clock(dev)
-        new_delta = (delta if self.donate
-                     else tree_map(torch.empty_like, delta))
-        ghat, agg, gather_s = self.aggregate_fn(gstack, delta, step, key,
-                                                new_delta)
-        metrics.update(agg)
-        t2 = clock(dev)
-        params, opt_state = make_optimizer(self.train).apply(params, ghat,
-                                                             opt_state)
-        del gstack, ghat
-        t3 = clock(dev)
+        with tracing.span("round", t=step):
+            t0 = clock(dev)
+            with tracing.span("step.grads"):
+                gstack, metrics, scatter_s = self.grads_fn(params, batch)
+            t1 = clock(dev)
+            new_delta = (delta if self.donate
+                         else tree_map(torch.empty_like, delta))
+            with tracing.span("step.aggregate"):
+                ghat, agg, gather_s = self.aggregate_fn(gstack, delta, step,
+                                                        key, new_delta)
+            metrics.update(agg)
+            t2 = clock(dev)
+            params, opt_state = make_optimizer(self.train).apply(
+                params, ghat, opt_state)
+            del gstack, ghat
+            t3 = clock(dev)
         self.split = {"grads": t1 - t0 - scatter_s,
                       "aggregate": t2 - t1 - gather_s, "update": t3 - t2}
         if self.mesh.processes:

@@ -28,6 +28,10 @@ CHUNK = ["stream.mac", "stream.encode", "encode.threshold", "encode.sparsify",
          "encode.project", "encode.frame", "stream.mac", "stream.decode",
          "decode.normalize", "decode.amp"]
 DEVICE = ["grads.batch", "grads.forward", "grads.backward", "grads.flatten"]
+#: each device's attention mixers: 2 layers, in the forward and, under
+#: remat, in the backward's recompute (on the CPU, autograd runs it in the
+#: calling thread, inside the round)
+MIXERS = ["model.attention"] * 2 * 2
 
 
 def _fed(device="cpu", scheme="a_dsgd"):
@@ -117,7 +121,8 @@ def test_span_tree_of_a_round(fed):
         assert all(spans[k]["chunk"] == spans[j]["chunk"]
                    for k in _children(spans, j))
     assert Counter(s["name"] for s in spans) == Counter(
-        ["round", "grads", "stream", "adam"] + DEVICE * M + CHUNK * n)
+        ["round", "grads", "stream", "adam"] + DEVICE * M + CHUNK * n
+        + MIXERS * M)
     for i, s in enumerate(spans):
         assert s["end_ns"] >= s["start_ns"] and s["device_ms"] is None
         if s["parent"] is not None:
@@ -250,7 +255,7 @@ def test_stream_spans_cover_every_scheme(scheme):
         assert got == sorted(list(range(n)) * per)
     assert {s["name"] for s in spans} == {
         "round", "grads", "stream", "adam", "stream.encode", "stream.mac",
-        "stream.decode"} | set(DEVICE)
+        "stream.decode"} | set(DEVICE) | set(MIXERS)
 
 
 def test_only_a_round_tree_is_kept():
